@@ -10,14 +10,31 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, timed;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version and the
-   PyTorch library call computing the same function;
+   PyTorch library call computing the same function (the bucket count's
+   edge cases here, its scale shape in phase 4);
 3. the main path at the paper's configuration: ``HistogramStore`` with
    T=2032 on the card, ``ingest_many`` of 31 × 200,000 seeded Gumbel values,
    ``query_many`` of all 496 windows at β=254 — bit-equal to the same run on
    the CPU, and every kernel of the path launched;
 4. scale: 365 partitions × 2^20 values, T=2032, 1,000 random windows, eight
    of them held to the reported ε against an exact sort of their values;
-5. report: the kernels JSON line, throughput/latency, the card.
+   the bucket count over all 3.8e8 values against one 255-boundary answer,
+   bit-equal to its plain version, and timed;
+5. log analytics (the tile Summarizer, ``repro_torch.kernels.ops``): 31
+   ragged days of lognormal latencies, ``summarize_tiles`` bit-equal to its
+   CPU run, ``ingest_summary`` into a T=2048 store, all 496 windows at
+   β=254; every day and window held with ``bucket_sizes`` (equal to an
+   independent sort count) to its composed bound;
+6. the registry (``TenantRegistry``): 256 tenants × 31 days × 65,536
+   values through ``ingest_async`` + ``flush`` into a shared arena, a
+   dashboard refresh of 256 windows in one merge with zero host row
+   copies, 1,000 random windows, the first 8 tenants bit-equal to a CPU
+   registry, 32 windows' true occupancy within ε;
+7. report: the kernels JSON line, throughput/latency, the card.
+
+Phases 3, 5 and 6 are the main paths: each is run with the launch counts
+set to 0 just before it and read just after, and fails unless every kernel
+of its path was launched.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Writes nothing outside ``build/`` (the kernel build).
@@ -137,6 +154,56 @@ def summary_inputs(rng, Q: int, k: int, lo: int, hi: int, ties: bool, device):
 # ----------------------------------------------------------------- phase 2
 
 
+def check_bucket_count(dev) -> int:
+    """The bucket count against its plain version on the card, bit-equal,
+    at its edge cases: ties, NaN/±inf/±0 values, b_T = +inf, int32 above
+    2^24, NaN boundaries, T+1 in {2, 33, 255, 2049}, one T+1 that needs
+    more than 48 KB of shared memory and one too wide for it, n in
+    {0, 1, 5000, 2^20 + 3}; and the rejection of unsorted boundaries.
+    Returns the number of cases."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = []
+    for T1 in (2, 33, 255, 2049):
+        for n in (0, 1, 5000, (1 << 20) + 3):
+            x = np.round(rng.normal(size=n) * 4).astype(np.float32)
+            b = np.sort(np.round(rng.normal(size=T1) * 4)).astype(np.float32)  # ties
+            cases.append((f"T+1={T1} n={n}", x, b))
+    x = rng.normal(size=1 << 20).astype(np.float32)
+    at = rng.integers(0, x.size, 1 << 16)
+    x[at] = rng.choice(np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), at.size)
+    b = np.sort(np.concatenate([rng.normal(size=250), [-0.0, 0.0, 0.0, -0.0, 0.0]])).astype(np.float32)
+    cases += [
+        ("NaN/inf/±0 values", x, b),
+        ("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32)),
+        ("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32)),
+        ("NaN boundaries", x, np.concatenate([b[:200], [np.nan] * 55]).astype(np.float32)),
+        ("int32 above 2^24", rng.integers(2**24, 2**31 - 1, size=(1 << 20) + 3, dtype=np.int32),
+         np.sort(rng.integers(2**24, 2**31 - 1, size=255)).astype(np.float32)),
+        ("T+1=20001 (shared memory above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32)),
+        ("T+1=40001 (global memory)", x, np.sort(rng.normal(size=40_001)).astype(np.float32)),
+    ]
+    for name, xc, bc in cases:
+        xd, bd = torch.from_numpy(xc).to(dev), torch.from_numpy(bc).to(dev)
+        got = kernels.cumulative_counts(xd, bd)
+        want = ref.cumulative_counts_ref(xd, bd)
+        assert torch.equal(got, want), f"bucket count {name}: differs from the plain version"
+        assert torch.equal(got.cpu(), ref.cumulative_counts_ref(xd.cpu(), bd.cpu())), f"bucket count {name} vs CPU"
+        sizes = kernels.bucket_sizes(xd, bd)
+        assert torch.equal(sizes, ref.bucket_sizes_from_cumulative(ref.counts_ref(xd, bd)).float()), name
+    for bad in ([0.0, 2.0, 1.0], [0.0, float("nan"), 1.0]):
+        try:
+            kernels.cumulative_counts(torch.ones(8, device=dev), torch.tensor(bad, device=dev))
+        except ValueError:
+            continue
+        raise AssertionError(f"bucket count took unsorted boundaries {bad}")
+    return len(cases)
+
+
 def check_kernels(dev, rng) -> dict:
     """Each kernel against its plain version on the card; returns the
     per-kernel measurements of the kernels line."""
@@ -244,6 +311,7 @@ def check_kernels(dev, rng) -> dict:
     out["merge_cut"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
     log(f"merge query 1000x32x2033 beta=254: {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms; "
         f"{len(merge_cases)} cases x 2 dtypes + {golden} golden bit-equal")
+    log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
     return out
 
 
@@ -271,7 +339,7 @@ def merge_golden(dev) -> int:
         for _ in range(k):
             n = int(rng.integers(Tg, 400))
             v = (rng.integers(0, 8, size=n) if dup else rng.normal(size=n) * 5).astype(np.float32)
-            hs.append(build_exact(v, Tg))
+            hs.append(build_exact(v, Tg, device="cpu"))
         b = torch.stack([h.boundaries for h in hs])[None]
         s = torch.stack([h.sizes for h in hs])[None]
         bo, so = merge_batched(b.to(dev), s.to(dev), beta)
@@ -325,8 +393,8 @@ def paper_config(dev) -> tuple[dict, dict]:
         assert np.all(np.isfinite(hg.boundaries)) and hg.boundaries.shape == (cfg.beta + 1,)
         n = sum(len(parts[p]) for p in range(lo, hi + 1))
         assert float(hg.sizes.astype(np.float64).sum()) == n
-    for name, c in launches.items():
-        assert c > 0, f"main path never launched {name}: {launches}"
+    for name in ("tile_sort", "sort_kv", "merge_cut"):  # the store's kernels
+        assert launches[name] > 0, f"main path never launched {name}: {launches}"
     log(f"paper config: 31 partitions x 200000, 496 windows bit-equal to the CPU run; "
         f"ingest {t_ing:.3f} s, query_many {t_q:.3f} s; launches {launches}")
     log(f"paper config traced: {json.dumps(prof)}")
@@ -400,6 +468,7 @@ def scale(dev, days: int = 365, n: int = 1 << 20) -> dict:
         assert dev_max <= eps, (a, b, dev_max, eps)
         worst = max(worst, dev_max / eps)
         del vals
+    bc = scale_bucket_count(dev, data, ans[0][0].boundaries)
     # single-window latency: uncached query() calls, each one merge launch
     lat = []
     for a, b in zip(rng.integers(0, days, size=200), rng.integers(0, days, size=200)):
@@ -415,10 +484,243 @@ def scale(dev, days: int = 365, n: int = 1 << 20) -> dict:
         "query_p99_ms": float(np.percentile(lat, 99)),
         "worst_dev_over_eps": worst,
         "traced": prof,
+        "bucket_count": bc,
     }
     log(f"scale: {days} x {n} values ingested in {t_ing:.3f} s; 1000 windows in {t_qm:.3f} s; "
         f"8 windows within eps (worst |true - N/beta| / eps = {worst:.4f})")
     return out
+
+
+def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> dict:
+    """The bucket count at the scale shape: all ``data`` (365 × 2^20) against
+    one answer's 255 boundaries, bit-equal to its plain version, its sizes
+    equal to an exact sort count (total 3.8e8 > 2^24), and timed."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    allv = torch.from_numpy(data).to(dev)
+    bnd = torch.from_numpy(boundaries).to(dev)
+    N, T1 = allv.numel(), bnd.numel()
+    got = kernels.cumulative_counts(allv, bnd)
+    want = ref.cumulative_counts_ref(allv, bnd)
+    assert torch.equal(got, want), "bucket count at scale: differs from the plain version"
+    sizes = kernels.bucket_sizes(allv, bnd)
+    true = true_occupancy(allv.reshape(-1), bnd)
+    assert np.array_equal(sizes.cpu().numpy().astype(np.float64), true), "bucket sizes at scale: not exact"
+    inside = int(((allv >= bnd[0]) & (allv <= bnd[-1])).sum())  # the rest is in no bucket
+    assert true.sum() == inside, (true.sum(), inside)
+    ms = cuda_ms(lambda: kernels.cumulative_counts(allv, bnd))
+    plain = cuda_ms(lambda: ref.cumulative_counts_ref(allv, bnd))
+    flat = allv.reshape(-1)
+    lib = cuda_ms(lambda: torch.bincount(torch.bucketize(flat, bnd, right=True), minlength=T1 + 1))
+    b, by = bound_ms(4.0 * N, N * np.log2(T1))
+    log(f"bucket count {N} values x {T1} boundaries: {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bucketize+bincount {lib:.3f} ms, bound {b:.3f} ms ({by}); sizes equal a sort count")
+    return dict(max_abs_err=max_abs(got, want), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+
+
+# ----------------------------------------------------------------- phase 5
+
+
+def synth_day(rng, day: int, base: int = 65_536) -> np.ndarray:
+    """A day of lognormal latencies with a weekly cycle and a late surge,
+    of ragged length base + U[0, base/16) — ``examples/log_analytics.py``'s
+    generator, drawn the same way from the same seed."""
+    n = base + int(rng.integers(0, max(1, base // 16)))
+    scale = 1.0 + 0.25 * (day % 7 in (5, 6)) + 0.6 * (day >= 24)
+    return (rng.lognormal(-1.8, 0.55, size=n) * scale).astype(np.float32)
+
+
+def window_bound(eps: float, day_eps) -> float:
+    """Composed bound of a window answer over approximate day summaries:
+    the store's ε plus, per day, twice the day's own bound (a range of a
+    day's buckets is off by at most its two ends)."""
+    return eps + 2.0 * float(sum(day_eps))
+
+
+def log_analytics(dev) -> tuple[dict, dict]:
+    """The tile Summarizer path of ``examples/log_analytics.py`` on the card.
+    Returns the launch counts of the path and its measurements."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import HistogramStore
+
+    T_OUT, T_TILE, TILE = 2048, 512, 4096
+    rng = np.random.default_rng(0)
+    days = {d: synth_day(rng, d) for d in range(31)}
+    wins = [(lo, hi) for lo in range(31) for hi in range(lo, 31)]
+    vd = {d: torch.from_numpy(v).to(dev) for d, v in days.items()}
+    sync(dev)
+
+    def run():
+        store = HistogramStore(num_buckets=T_OUT, device=dev)
+        summ = {}
+        for d, v in days.items():
+            summ[d] = kernels.summarize_tiles(v, tile_len=TILE, T_tile=T_TILE, T_out=T_OUT)
+            store.ingest_summary(d, summ[d])
+        ans = store.query_many(wins, BETA)
+        day_true = {d: kernels.bucket_sizes(vd[d], summ[d].boundaries) for d in days}
+        win_true = [
+            kernels.bucket_sizes(torch.cat([vd[d] for d in range(lo, hi + 1)]), torch.from_numpy(h.boundaries).to(dev))
+            for (lo, hi), (h, _) in zip(wins, ans)
+        ]
+        sync(dev)
+        return summ, ans, day_true, win_true
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summ, ans, day_true, win_true = run()
+    wall = time.perf_counter() - t0
+    launches = kernels.reset_launches()
+    for name, c in launches.items():
+        assert c > 0, f"log analytics path never launched {name}: {launches}"
+    prof = device_breakdown(run)
+    day_eps = {}
+    worst_day = 0.0
+    for d, v in days.items():
+        hc = kernels.summarize_tiles(v, tile_len=TILE, T_tile=T_TILE, T_out=T_OUT, device="cpu")
+        h = summ[d]
+        assert torch.equal(h.boundaries.cpu(), hc.boundaries) and torch.equal(h.sizes.cpu(), hc.sizes), d
+        n = v.size
+        assert float(h.sizes.double().sum()) == n and bool(torch.isfinite(h.boundaries).all())
+        true = day_true[d].cpu().numpy().astype(np.float64)
+        assert np.array_equal(true, true_occupancy(vd[d], h.boundaries)), f"day {d}: bucket_sizes vs sort"
+        day_eps[d] = 2.0 * n / T_TILE + 2.0 * -(-n // TILE)
+        dev_max = float(np.abs(true - n / T_OUT).max())
+        assert dev_max <= day_eps[d], (d, dev_max, day_eps[d])
+        worst_day = max(worst_day, dev_max / day_eps[d])
+    worst_win = 0.0
+    for (lo, hi), (h, eps), true_t in zip(wins, ans, win_true):
+        vals = torch.cat([vd[d] for d in range(lo, hi + 1)])
+        n = vals.numel()
+        true = true_t.cpu().numpy().astype(np.float64)
+        assert np.array_equal(true, true_occupancy(vals, torch.from_numpy(h.boundaries).to(dev))), (lo, hi)
+        assert true.sum() == n and float(h.sizes.astype(np.float64).sum()) == n
+        bound = window_bound(eps, [day_eps[d] for d in range(lo, hi + 1)])
+        dev_max = float(np.abs(true - n / BETA).max())
+        assert dev_max <= bound, (lo, hi, dev_max, bound)
+        worst_win = max(worst_win, dev_max / bound)
+    out = {
+        "records": int(sum(v.size for v in days.values())),
+        "wall_s": wall,
+        "worst_day_dev_over_bound": worst_day,
+        "worst_window_dev_over_bound": worst_win,
+        "traced": prof,
+    }
+    log(f"log analytics: 31 ragged days ({out['records']} records) summarized bit-equal to the CPU; "
+        f"496 windows; every day and window within its bound (worst {worst_day:.4f} / {worst_win:.4f}); "
+        f"wall {wall:.3f} s; launches {launches}")
+    log(f"log analytics traced: {json.dumps(prof)}")
+    return launches, out
+
+
+# ----------------------------------------------------------------- phase 6
+
+
+def registry(dev, tenants: int = 256, days: int = 31, n: int = 65_536) -> tuple[dict, dict]:
+    """The multi-tenant serving plane at dashboard scale.  Returns the launch
+    counts of the path and its measurements."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import TenantRegistry
+
+    T_REG, B_REG = 256, 64
+    rng = np.random.default_rng(SEED + 6)
+    data = rng.standard_normal(size=(tenants, days, n), dtype=np.float32)
+    data *= 0.55
+    data -= 1.8
+    np.exp(data, out=data)  # lognormal latencies
+    names = [f"svc{t:03d}" for t in range(tenants)]
+    refresh = [(name, 0, days - 1) for name in names]
+    pick = rng.integers(0, tenants, size=1000)
+    lo = rng.integers(0, days, size=1000)
+    hi = np.minimum(days - 1, lo + rng.integers(0, days, size=1000))
+    wins = [(names[t], int(a), int(b)) for t, a, b in zip(pick, lo, hi)]
+
+    def ingest(device, count: int = tenants):
+        reg = TenantRegistry(num_buckets=T_REG, shared_arena=True, device=device)
+        for t, name in enumerate(names[:count]):
+            for d in range(days):
+                reg.ingest_async(name, d, data[t, d])
+        reg.flush()
+        return reg
+
+    kernels.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    reg = ingest(dev)
+    sync(dev)
+    t_ing = time.perf_counter() - t0
+    reg.merge_dispatches = 0
+    reg.reset_host_row_copies()
+    t0 = time.perf_counter()
+    dash = reg.query_many(refresh, B_REG)
+    t_dash = time.perf_counter() - t0
+    assert reg.merge_dispatches == 1, reg.merge_dispatches
+    assert reg.host_row_copies == 0, reg.host_row_copies
+    t0 = time.perf_counter()
+    ans = reg.query_many(wins, B_REG)
+    t_win = time.perf_counter() - t0
+    check = rng.choice(len(wins), size=32, replace=False)
+    true = {}
+    for i in check:
+        name, a, b = wins[i]
+        t = names.index(name)
+        vals = torch.from_numpy(data[t, a : b + 1].reshape(-1)).to(dev)
+        true[i] = (kernels.bucket_sizes(vals, torch.from_numpy(ans[i][0].boundaries).to(dev)), vals)
+    sync(dev)
+    launches = kernels.reset_launches()
+    for kname, c in launches.items():
+        assert c > 0, f"registry path never launched {kname}: {launches}"
+    worst = 0.0
+    for i, (sizes, vals) in true.items():
+        (h, eps), N = ans[i], vals.numel()
+        got = sizes.cpu().numpy().astype(np.float64)
+        assert np.array_equal(got, true_occupancy(vals, torch.from_numpy(h.boundaries).to(dev))), wins[i]
+        assert got.sum() == N and float(h.sizes.astype(np.float64).sum()) == N
+        dev_max = float(np.abs(got - N / B_REG).max())
+        assert dev_max <= eps, (wins[i], dev_max, eps)
+        worst = max(worst, dev_max / eps)
+    for (h, eps), (name, a, b) in zip(dash, refresh):
+        assert h.boundaries.shape == (B_REG + 1,) and np.all(np.isfinite(h.boundaries)), name
+        assert float(h.sizes.astype(np.float64).sum()) == days * n
+    cpu = ingest("cpu", 8)
+    first = set(names[:8])
+    qs = [q for q in refresh + wins if q[0] in first]
+    cpu_ans = cpu.query_many(qs, B_REG)
+    mine = {q: a for q, a in zip(refresh + wins, dash + ans)}
+    for q, (hc, ec) in zip(qs, cpu_ans):
+        hg, eg = mine[q]
+        assert np.array_equal(hg.boundaries, hc.boundaries) and np.array_equal(hg.sizes, hc.sizes), q
+        assert eg == ec, q
+    prof = {
+        "ingest": device_breakdown(lambda: ingest(dev).close()),
+        "query_many": device_breakdown(lambda: reg.query_many(wins, B_REG + 1)),
+    }
+    reg.close()
+    cpu.close()
+    out = {
+        "tenants": tenants,
+        "days": days,
+        "values": int(data.size),
+        "ingest_s": t_ing,
+        "ingest_values_per_s": data.size / t_ing,
+        "refresh_256_s": t_dash,
+        "query_many_1000_s": t_win,
+        "worst_dev_over_eps": worst,
+        "cpu_checked_queries": len(qs),
+        "traced": prof,
+    }
+    log(f"registry: {tenants} tenants x {days} days x {n} values ingested in {t_ing:.3f} s; refresh of "
+        f"{len(refresh)} windows in one merge, 0 host row copies, {t_dash:.3f} s; 1000 windows in "
+        f"{t_win:.3f} s; {len(qs)} answers of 8 tenants bit-equal to the CPU registry; 32 windows within "
+        f"eps (worst {worst:.4f}); launches {launches}")
+    log(f"registry traced: {json.dumps(prof)}")
+    return launches, out
 
 
 def card() -> str:
@@ -473,22 +775,29 @@ def main() -> int:
     meas = phase("2 kernels vs plain", lambda: check_kernels(dev, rng))
     main_path = phase("3 paper config", lambda: paper_config(dev))
     big = phase("4 scale", lambda: scale(dev))
+    logs = phase("5 log analytics", lambda: log_analytics(dev))
+    tenants = phase("6 registry", lambda: registry(dev))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
         return 1
     launches, times = main_path
+    meas["bucket_count"] = big.pop("bucket_count")
+    per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0]}
+    total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     replaces = {
         "tile_sort": ("src/repro_torch/kernels/csrc/row_sort.cu", "src/repro/kernels/tile_sort.py:119"),
         "sort_kv": ("src/repro_torch/kernels/csrc/kv_sort.cu", "src/repro/kernels/tile_sort.py:125"),
         "merge_cut": ("src/repro_torch/kernels/csrc/merge_cut.cu", "src/repro/kernels/merge_cut.py:46"),
+        "bucket_count": ("src/repro_torch/kernels/csrc/bucket_count.cu", "src/repro/kernels/bucket_count.py:35"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0], "replaces": replaces[name][1],
-         "launches": launches[name], **meas[name]}
+         "launches": total[name], **meas[name]}
         for name in replaces
     ]}
     log(json.dumps(line))
-    log(json.dumps({"build_s": build_s, "paper": times, "scale": big}))
+    log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "paper": times, "scale": big,
+                    "log_analytics": logs[1], "registry": tenants[1]}))
     log(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

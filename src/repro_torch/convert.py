@@ -1,11 +1,14 @@
-"""Carry ``HistogramStore`` state across from the JAX package.
+"""Carry ``HistogramStore`` and ``TenantRegistry`` state across from the
+JAX package.
 
 The two packages share their on-disk formats, so an npz that one saved
-loads in the other (``HistogramStore.load``) and a WAL written by one
-replays in the other.  :func:`store_from_reference` takes the state
-in memory instead: the ``(meta, arrays)`` pair of the reference's
-``HistogramStore._state()`` (or the full meta dict that its ``save``
-writes, which adds the store configuration).
+loads in the other (``HistogramStore.load``, ``TenantRegistry.load``) and
+a WAL written by one replays in the other.  :func:`store_from_reference`
+takes a store's state in memory instead: the ``(meta, arrays)`` pair of
+the reference's ``HistogramStore._state()`` (or the full meta dict that
+its ``save`` writes, which adds the store configuration).
+:func:`registry_from_reference` takes a registry's: the meta dict and the
+arrays of the reference's ``TenantRegistry.save`` container.
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ import numpy as np
 
 from repro_torch.core.retention import policy_from_spec
 from repro_torch.core.stream import HistogramStore
+from repro_torch.core.tenant import TenantRegistry
 
-__all__ = ["store_from_reference"]
+__all__ = ["registry_from_reference", "store_from_reference"]
 
 
 def _config(meta: dict, arrays, overrides: dict) -> dict:
@@ -57,3 +61,18 @@ def store_from_reference(
     store = HistogramStore(device=device, **_config(meta, arrays, store_kwargs))
     store._restore(meta, {k: np.asarray(v) for k, v in arrays.items()})
     return store
+
+
+def registry_from_reference(
+    meta: dict, arrays: dict[str, np.ndarray], device=None
+) -> TenantRegistry:
+    """A port registry holding every tenant of the reference registry —
+    summaries, pre-merged tree nodes and the shared arena's pools, bit
+    for bit — on ``device`` (``None`` → ``"cuda"``).
+
+    ``meta`` is the json ``"meta"`` entry of the reference's
+    ``TenantRegistry.save`` npz (schema ``tenant_registry/v1``) and
+    ``arrays`` its other entries."""
+    return TenantRegistry._from_state(
+        meta, {k: np.asarray(v) for k, v in arrays.items()}, device
+    )

@@ -17,8 +17,10 @@ Functions on tensors run where their input lies.  Every sort and merge
 here goes through the port's kernels (:mod:`repro_torch.kernels`):
 the hand-written CUDA kernels for CUDA tensors, their plain PyTorch
 versions for CPU tensors.  Array-likes that are not tensors (NumPy arrays,
-lists) are taken onto the CPU, with 64-bit types narrowed to 32 bits as
-the reference's ``jnp.asarray`` does.
+lists) go to the card unless a ``device=`` keyword names another device
+(:mod:`repro_torch.device`; no card and no ``device`` raises), with
+64-bit types narrowed to 32 bits as the reference's ``jnp.asarray`` does.
+Beside a tensor, they go where the tensor lies.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import as_tensor, home
 from repro_torch.kernels import merge_batched, ref, sort_kv, sort_rows, summarize_rows
 
 __all__ = [
@@ -54,7 +57,6 @@ __all__ = [
     "sample_histogram",
 ]
 
-_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 # narrower types the kernels sort as 32-bit values (exactly)
 _WIDEN = {
     torch.float16: torch.float32,
@@ -63,20 +65,6 @@ _WIDEN = {
     torch.uint8: torch.int32,
     torch.int16: torch.int32,
 }
-
-
-def as_tensor(x, device=None) -> torch.Tensor:
-    """``x`` as a tensor; a NumPy array or Python value is narrowed from 64
-    to 32 bits first (the reference's ``jnp.asarray`` with x64 off), and a
-    tensor is moved only when ``device`` is given."""
-    if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
-    a = np.asarray(x)
-    if a.dtype in _NARROW:
-        a = a.astype(_NARROW[a.dtype])
-    elif not a.flags.writeable:  # torch tensors may not alias read-only memory
-        a = a.copy()
-    return torch.as_tensor(a, device=device)
 
 
 class Histogram(NamedTuple):
@@ -97,11 +85,11 @@ class Histogram(NamedTuple):
     @property
     def n(self) -> torch.Tensor:
         """Total number of summarized values."""
-        return torch.sum(as_tensor(self.sizes), dim=-1)
+        return torch.sum(as_tensor(self.sizes, home(self.boundaries)), dim=-1)
 
     def cumulative(self) -> torch.Tensor:
         """``S(i, H)`` for i = 1..T, shape ``(..., T)``."""
-        return torch.cumsum(as_tensor(self.sizes), dim=-1)
+        return torch.cumsum(as_tensor(self.sizes, home(self.boundaries)), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -139,14 +127,14 @@ def _sizes(ns, num_buckets: int, count_dtype, device) -> torch.Tensor:
 
 
 def build_exact_padded_batched(
-    values, ns, num_buckets: int, count_dtype=torch.float32
+    values, ns, num_buckets: int, count_dtype=torch.float32, *, device=None
 ) -> Histogram:
     """Summarizer of a ``(k, n_pad)`` stack of partitions with true lengths
     ``ns (k,)`` (host integers): one sort of every row and a gather of the
     ``T+1`` boundaries at the masked cuts ``floor(i·n/T)``.  Bit-identical
     to :func:`build_exact` of each row's first ``n`` values when the rest
     is padding that sorts past them (:func:`pad_pow2`)."""
-    x = as_tensor(values)
+    x = as_tensor(values, device)
     ns = np.asarray(ns, np.int64).reshape(-1)
     wide = _WIDEN.get(x.dtype) if x.device.type == "cuda" else None
     if wide is None:
@@ -156,26 +144,32 @@ def build_exact_padded_batched(
     return Histogram(boundaries=b, sizes=_sizes(ns, num_buckets, count_dtype, x.device))
 
 
-def build_exact_padded(values, n, num_buckets: int, count_dtype=torch.float32) -> Histogram:
+def build_exact_padded(
+    values, n, num_buckets: int, count_dtype=torch.float32, *, device=None
+) -> Histogram:
     """Mask-aware :func:`build_exact` over one sentinel-padded partition."""
     h = build_exact_padded_batched(
-        as_tensor(values).reshape(1, -1), [int(n)], num_buckets, count_dtype
+        as_tensor(values, device).reshape(1, -1), [int(n)], num_buckets, count_dtype
     )
     return Histogram(h.boundaries[0], h.sizes[0])
 
 
-def build_exact(values, num_buckets: int, count_dtype=torch.float32) -> Histogram:
+def build_exact(
+    values, num_buckets: int, count_dtype=torch.float32, *, device=None
+) -> Histogram:
     """Exact ``T``-bucket equi-depth histogram of a 1-D value array: sort
     the partition and cut it into ``T`` near-equal runs.  ``O(n log n)``."""
-    x = as_tensor(values).reshape(-1)
+    x = as_tensor(values, device).reshape(-1)
     if x.shape[0] < 1:
         raise ValueError("cannot summarize an empty partition")
     return build_exact_padded(x, x.shape[0], num_buckets, count_dtype)
 
 
-def build_exact_batched(values, num_buckets: int, count_dtype=torch.float32) -> Histogram:
+def build_exact_batched(
+    values, num_buckets: int, count_dtype=torch.float32, *, device=None
+) -> Histogram:
     """:func:`build_exact` of each row of ``values (k, n)``."""
-    x = as_tensor(values)
+    x = as_tensor(values, device)
     return build_exact_padded_batched(x, [x.shape[1]] * x.shape[0], num_buckets, count_dtype)
 
 
@@ -184,39 +178,38 @@ def build_exact_batched(values, num_buckets: int, count_dtype=torch.float32) -> 
 # ---------------------------------------------------------------------------
 
 
-def pre_histogram(histograms: Histogram) -> tuple[torch.Tensor, torch.Tensor]:
+def pre_histogram(histograms: Histogram, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The paper's pre-histogram ``H⁰`` of stacked summaries
     ``boundaries (k, T+1)``/``sizes (k, T)``: ``(pos, A)`` with ``pos`` the
     stably sorted flat boundaries ``(k(T+1),)`` and ``A`` the left-collapse
     cumulative sizes ``(k(T+1) - 1,)``."""
-    b = as_tensor(histograms.boundaries)
-    s = as_tensor(histograms.sizes).to(b.device)
+    b, s = _pair(histograms, device)
     k = b.shape[0]
     mass = torch.cat([s, torch.zeros((k, 1), dtype=s.dtype, device=s.device)], dim=-1)
     pos, m = sort_kv(b.reshape(1, -1).contiguous(), mass.reshape(1, -1))
     return pos[0], torch.cumsum(m[0], dim=0)[:-1]
 
 
-def merge(histograms: Histogram, beta: int) -> Histogram:
+def merge(histograms: Histogram, beta: int, *, device=None) -> Histogram:
     """Merge ``k`` stacked ``T``-bucket summaries into a β-bucket histogram
     (rank-select form of paper Algorithm 1; the batched merge kernel on a
     CUDA tensor)."""
-    b = as_tensor(histograms.boundaries)
-    s = as_tensor(histograms.sizes).to(b.device)
+    b, s = _pair(histograms, device)
     wide = _WIDEN.get(b.dtype) if b.device.type == "cuda" else None
     bk = b if wide is None else b.to(wide)  # the merge only selects values
     bo, so = merge_batched(bk[None].contiguous(), s[None].contiguous(), beta)
     return Histogram(boundaries=bo[0].to(b.dtype), sizes=so[0])
 
 
-def merge_list(histograms: Sequence[Histogram], beta: int) -> Histogram:
+def merge_list(histograms: Sequence[Histogram], beta: int, *, device=None) -> Histogram:
     """Merge a list of (possibly differently-sized) summaries; narrower
     ones are padded with zero-size buckets at their last boundary, which
     leaves equation (★) unchanged."""
     T_max = max(h.sizes.shape[-1] for h in histograms)
+    device = home(*(x for h in histograms for x in h), device=device)
     bs, ss = [], []
     for h in histograms:
-        b, s = as_tensor(h.boundaries), as_tensor(h.sizes)
+        b, s = _pair(h, device)
         pad = T_max - s.shape[-1]
         bs.append(torch.cat([b, b[-1:].repeat(pad)]))
         ss.append(torch.cat([s, torch.zeros((pad,), dtype=s.dtype, device=s.device)]))
@@ -233,14 +226,17 @@ def _host(x) -> np.ndarray:
 
 
 def merge_histograms_sequential(
-    histograms: Sequence[Histogram] | Histogram, beta: int
+    histograms: Sequence[Histogram] | Histogram, beta: int, *, device=None
 ) -> Histogram:
     """Host-side port of paper Algorithm 1 (two-pointer sweep): the oracle
-    of the vectorized :func:`merge`.  ``O(kT log k + kT)``."""
+    of the vectorized :func:`merge`.  ``O(kT log k + kT)``.  The result
+    goes where the input lies (or to ``device``)."""
     if isinstance(histograms, Histogram):
+        device = home(*histograms, device=device)
         b = _host(histograms.boundaries)
         s = _host(histograms.sizes)
     else:
+        device = home(*(x for h in histograms for x in h), device=device)
         b = np.stack([_host(h.boundaries) for h in histograms])
         s = np.stack([_host(h.sizes) for h in histograms])
     k = b.shape[0]
@@ -267,8 +263,8 @@ def merge_histograms_sequential(
     out_b.append(pos[-1])
     out_s.append(n - prev_cum)
     return Histogram(
-        boundaries=as_tensor(np.array(out_b)),
-        sizes=as_tensor(np.array(out_s, dtype=np.float32)),
+        boundaries=as_tensor(np.array(out_b), device),
+        sizes=as_tensor(np.array(out_s, dtype=np.float32), device),
     )
 
 
@@ -277,9 +273,16 @@ def merge_histograms_sequential(
 # ---------------------------------------------------------------------------
 
 
-def _zero_cum(hist: Histogram) -> tuple[torch.Tensor, torch.Tensor]:
-    b = as_tensor(hist.boundaries)
-    s = as_tensor(hist.sizes).to(b.device)
+def _pair(hist: Histogram, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hist``'s boundaries and sizes as tensors on one device: ``device``
+    if given, else where a tensor among them lies, else the card."""
+    device = home(*hist, device=device)
+    b = as_tensor(hist.boundaries, device)
+    return b, as_tensor(hist.sizes, b.device)
+
+
+def _zero_cum(hist: Histogram, device) -> tuple[torch.Tensor, torch.Tensor]:
+    b, s = _pair(hist, device)
     cum = torch.cat([torch.zeros_like(s[..., :1]), torch.cumsum(s, dim=-1)], dim=-1)
     return b, cum
 
@@ -301,32 +304,33 @@ def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def cdf_left_collapse(hist: Histogram, x) -> torch.Tensor:
+def cdf_left_collapse(hist: Histogram, x, *, device=None) -> torch.Tensor:
     """CDF estimate under the paper's left-collapse assumption: the mass of
     the buckets whose left boundary is ≤ x (within ``±2N/T`` of truth)."""
-    b, cum = _zero_cum(hist)
+    b, cum = _zero_cum(hist, home(*hist, x, device=device))
     x = as_tensor(x, b.device).to(b.dtype)
     idx = torch.searchsorted(b[..., :-1].contiguous(), x.contiguous(), right=True)
     return cum[idx]
 
 
-def cdf_interp(hist: Histogram, x) -> torch.Tensor:
+def cdf_interp(hist: Histogram, x, *, device=None) -> torch.Tensor:
     """Piecewise-linear CDF estimate (mass uniform inside each bucket)."""
-    b, cum = _zero_cum(hist)
+    b, cum = _zero_cum(hist, home(*hist, x, device=device))
     return _interp(as_tensor(x, b.device), b, cum)
 
 
-def quantile(hist: Histogram, q) -> torch.Tensor:
+def quantile(hist: Histogram, q, *, device=None) -> torch.Tensor:
     """Approximate q-quantile (vector ``q`` ok) by inverse interpolated CDF;
     rank error within the paper's ``ε_max``."""
-    b, cum = _zero_cum(hist)
+    b, cum = _zero_cum(hist, home(*hist, q, device=device))
     n = cum[..., -1]
     return _interp(as_tensor(q, b.device).to(torch.float32) * n, cum, b)
 
 
-def range_count(hist: Histogram, lo, hi) -> torch.Tensor:
+def range_count(hist: Histogram, lo, hi, *, device=None) -> torch.Tensor:
     """Approximate number of values in ``[lo, hi)`` (Theorem 2 quantity)."""
-    return cdf_interp(hist, hi) - cdf_interp(hist, lo)
+    device = home(*hist, lo, hi, device=device)
+    return cdf_interp(hist, hi, device=device) - cdf_interp(hist, lo, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -334,19 +338,21 @@ def range_count(hist: Histogram, lo, hi) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def boundary_error(approx: Histogram, exact: Histogram) -> torch.Tensor:
+def boundary_error(approx: Histogram, exact: Histogram, *, device=None) -> torch.Tensor:
     """μ_b — normalized RMS boundary deviation (paper Eq. 9)."""
     B = approx.num_buckets
-    ba, be = as_tensor(approx.boundaries), as_tensor(exact.boundaries)
+    device = home(approx.boundaries, exact.boundaries, device=device)
+    ba, be = as_tensor(approx.boundaries, device), as_tensor(exact.boundaries, device)
     vmax, vmin = be[-1], be[0]
     rms = torch.sqrt(torch.mean((ba - be).to(torch.float32) ** 2))
     return B / (vmax - vmin) * rms
 
 
-def size_error(approx: Histogram, exact: Histogram) -> torch.Tensor:
+def size_error(approx: Histogram, exact: Histogram, *, device=None) -> torch.Tensor:
     """μ_s — normalized RMS bucket-size deviation (paper Eq. 10)."""
     B = approx.num_buckets
-    sa, se = as_tensor(approx.sizes), as_tensor(exact.sizes)
+    device = home(approx.sizes, exact.sizes, device=device)
+    sa, se = as_tensor(approx.sizes, device), as_tensor(exact.sizes, device)
     n = torch.sum(se)
     rms = torch.sqrt(torch.mean((sa - se) ** 2))
     return B / n * rms
@@ -358,10 +364,11 @@ def theoretical_eps_max(n: float, T: int, k: int = 1, exact_inputs: bool = True)
     return 2.0 * n / T + slack
 
 
-def empirical_sizes(values, boundaries) -> torch.Tensor:
+def empirical_sizes(values, boundaries, *, device=None) -> torch.Tensor:
     """TRUE per-bucket counts of ``values`` under ``boundaries`` (last
     bucket right-closed) — what the paper's μ_s measures."""
-    v = sort_rows(as_tensor(values).reshape(1, -1).contiguous())[0]
+    device = home(values, boundaries, device=device)
+    v = sort_rows(as_tensor(values, device).reshape(1, -1).contiguous())[0]
     b = as_tensor(boundaries, v.device).to(v.dtype).contiguous()
     lo = torch.searchsorted(v, b[:-1])
     hi = torch.searchsorted(v, b[1:])
@@ -370,9 +377,9 @@ def empirical_sizes(values, boundaries) -> torch.Tensor:
     return sizes
 
 
-def empirical_size_error(approx: Histogram, values) -> torch.Tensor:
+def empirical_size_error(approx: Histogram, values, *, device=None) -> torch.Tensor:
     """μ_s (paper Eq. 10) with true bucket occupancy under approx boundaries."""
-    v = as_tensor(values)
+    v = as_tensor(values, home(values, approx.boundaries, device=device))
     B = approx.num_buckets
     n = v.numel()
     true_sizes = empirical_sizes(v, approx.boundaries)
@@ -386,12 +393,13 @@ def empirical_size_error(approx: Histogram, values) -> torch.Tensor:
 
 
 def sample_histogram(
-    values, num_buckets: int, sample_size: int, generator: torch.Generator
+    values, num_buckets: int, sample_size: int, generator: torch.Generator, *, device=None
 ) -> Histogram:
     """`tuple` baseline of paper §7 — random sample + exact histogram of it,
     with the global min and max force-included; sizes scaled back to
-    ``N``.  The sample is drawn with ``generator`` on the values' device."""
-    v = as_tensor(values)
+    ``N``.  The sample is drawn with ``generator`` on the values' device
+    (the generator must live there)."""
+    v = as_tensor(values, device)
     n = v.shape[0]
     idx = torch.randint(0, n, (sample_size,), generator=generator, device=v.device)
     sample = torch.cat([v.min()[None], v[idx], v.max()[None]])

@@ -248,7 +248,8 @@ def merge_stacks(bounds, sizes, beta: int, device=None):
     """Batched merge: ``(Q, k, T+1)``/``(Q, k, T)`` → ``(Q, β+1)``/``(Q, β)``.
 
     One launch of the batched merge kernel (``kernels/merge_cut.py``) on
-    ``device`` (default: where ``bounds`` lies; host arrays are uploaded).
+    ``device`` (default: where ``bounds`` lies; host arrays go to the card,
+    so a CPU caller passes ``device="cpu"``).
     Shared by every batched Merger path: the tree's own queries and its
     level maintenance.  Returns tensors on that device.
     """

@@ -122,6 +122,7 @@ from repro_torch.core.histogram import (
     theoretical_eps_max,
 )
 from repro_torch.analysis.witness import OrderedRLock
+from repro_torch.device import resolve_device
 from repro_torch.core import failpoints as faults
 from repro_torch.core.arena import NodeArena
 from repro_torch.core.interval_tree import COLLAPSE_MODES, IntervalTree
@@ -140,17 +141,6 @@ _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 def _narrowed(v: np.ndarray) -> np.ndarray:
     to = _NARROW.get(v.dtype)
     return v if to is None else v.astype(to)
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` → ``cuda``; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "HistogramStore runs on the GPU by default and CUDA is not "
-            "available here; pass device='cpu' to run the plain versions"
-        )
-    return dev
 
 
 def _validated(values) -> np.ndarray:
@@ -293,6 +283,8 @@ class StoredSummary:
     crc: int | None = None
 
     def to_histogram(self, device=None) -> Histogram:
+        """This summary as tensors on ``device`` (``None`` → the card)."""
+        device = resolve_device(device)
         return Histogram(
             boundaries=torch.tensor(self.boundaries, device=device),
             sizes=torch.tensor(self.sizes, device=device),
@@ -356,7 +348,7 @@ class HistogramStore(PoolStateView):
         self.device = (
             self.arena.torch_device
             if self.arena is not None
-            else _resolve_device(self.device)
+            else resolve_device(self.device)
         )
         if isinstance(self.T_node, str) and self.T_node != "geometric":
             raise ValueError(f"unknown T_node mode: {self.T_node!r}")
@@ -940,7 +932,7 @@ class HistogramStore(PoolStateView):
         interval': ``store.quantile_query(day0, day1, 0.95)``."""
         beta = beta or min(self.num_buckets, 254)
         h, _ = self.query(lo, hi, beta, strict=False)
-        return quantile(h, np.asarray(q)).cpu().numpy()
+        return quantile(h, np.asarray(q), device=self.device).cpu().numpy()
 
     # ---------------------------------------------------------- persistence
     def _state(

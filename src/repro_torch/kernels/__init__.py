@@ -4,7 +4,11 @@
   (``csrc/row_sort.cu``);
 - :func:`sort_kv` — the stable key/value sort (``csrc/kv_sort.cu``), whose
   first stage :func:`argsort_pairs` also starts every merge;
-- :func:`merge_batched` — the batched merge (``csrc/merge_cut.cu``).
+- :func:`merge_batched` — the batched merge (``csrc/merge_cut.cu``);
+- :func:`cumulative_counts` — the bucket count (``csrc/bucket_count.cu``).
+
+The public entry points of :mod:`.ops` sit on them: :func:`bucket_sizes`,
+the tile Summarizer :func:`summarize_tiles` and :func:`merge_histograms`.
 
 Every wrapper runs its plain version (:mod:`repro_torch.kernels.ref`) for
 a CPU tensor and its kernel for a CUDA tensor; :data:`LAUNCHES` counts the
@@ -12,22 +16,32 @@ kernel launches.  The kernels are compiled at first use (``_lib.build``).
 """
 from repro_torch.kernels import ref
 from repro_torch.kernels._lib import LAUNCHES, build, reset_launches
+from repro_torch.kernels.bucket_count import cumulative_counts
 from repro_torch.kernels.merge_cut import merge_batched
 from repro_torch.kernels.tile_sort import (
     argsort_pairs,
+    pad_to_tiles,
     sort_kv,
     sort_rows,
     summarize_rows,
 )
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import bucket_sizes, merge_histograms, summarize_tiles
 
 __all__ = [
     "LAUNCHES",
     "argsort_pairs",
+    "bucket_sizes",
     "build",
+    "cumulative_counts",
     "merge_batched",
+    "merge_histograms",
+    "ops",
+    "pad_to_tiles",
     "ref",
     "reset_launches",
     "sort_kv",
     "sort_rows",
     "summarize_rows",
+    "summarize_tiles",
 ]

@@ -41,6 +41,7 @@ KERNELS = {
     "tile_sort": "row_sort.cu",
     "sort_kv": "kv_sort.cu",
     "merge_cut": "merge_cut.cu",
+    "bucket_count": "bucket_count.cu",
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -64,12 +65,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_longlong
 _SIGNATURES = {
     "hk_row_sort": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR],
     "hk_row_gather": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR],
     "hk_argsort": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
     "hk_kv_gather": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR],
     "hk_merge_cut": [_PTR, _PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR, _PTR, _PTR],
+    "hk_bucket_count": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _INT, _PTR],
 }
 
 

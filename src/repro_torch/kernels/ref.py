@@ -10,12 +10,83 @@ import numpy as np
 import torch
 
 __all__ = [
+    "bucket_sizes_from_cumulative",
+    "count_prefix",
+    "counts_ref",
+    "cumulative_counts_ref",
     "masked_cuts",
     "sort_rows_ref",
     "summarize_rows_ref",
     "sort_kv_ref",
     "merge_ref",
 ]
+
+# values per searchsorted call of the plain bucket count: bounds its
+# scratch (8 bytes a value) whatever the stream's length
+_COUNT_CHUNK = 1 << 24
+
+
+def count_prefix(boundaries: np.ndarray) -> int:
+    """How many leading boundaries the bucket count searches: those before
+    the first NaN (``x < NaN`` is false, so NaN boundaries count nothing).
+    Raises unless that prefix is non-decreasing and only NaN follows it —
+    what every histogram's boundaries are (NaN sorts last)."""
+    b = np.asarray(boundaries, np.float32).reshape(-1)
+    nan = np.isnan(b)
+    m = int(np.argmax(nan)) if nan.any() else b.shape[0]
+    if not nan[m:].all():
+        raise ValueError("boundaries hold NaN before a number: NaN may only end them")
+    if np.any(b[1:m] < b[: m - 1]):
+        raise ValueError("boundaries must be non-decreasing (histogram boundaries)")
+    return m
+
+
+def counts_ref(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
+    """Oracle for the bucket count, in exact integers: int64 ``(T+2,)`` =
+    ``[#(x < b_j) for j = 0..T] + [#(x == b_T)]`` over the float32 values
+    of ``x`` (any shape).  NaN values are never counted; ``+inf == b_T``
+    counts in the last slot.
+
+    Memory-bounded at any length: ``searchsorted`` + ``bincount`` over
+    chunks of the stream, then one cumulative sum — not the reference
+    oracle's ``(n, T+1)`` comparison.  Needs :func:`count_prefix`-valid
+    boundaries (the wrappers check them first)."""
+    flat = x.reshape(-1).to(torch.float32)
+    b = boundaries.reshape(-1).to(device=flat.device, dtype=torch.float32)
+    T1 = b.shape[0]
+    m = count_prefix(b.cpu().numpy())
+    prefix = b[:m].contiguous()
+    hist = torch.zeros(m + 1, dtype=torch.int64, device=flat.device)
+    eq = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for at in range(0, flat.shape[0] if m else 0, _COUNT_CHUNK):
+        v = flat[at : at + _COUNT_CHUNK]
+        v = v[~torch.isnan(v)]
+        # p = #(b_j <= v) over the sorted prefix, so v < b_j  <=>  p <= j
+        p = torch.searchsorted(prefix, v, right=True)
+        hist += torch.bincount(p, minlength=m + 1)
+        if m == T1:
+            eq += torch.sum(v == b[-1])
+    out = torch.zeros(T1 + 1, dtype=torch.int64, device=flat.device)
+    out[:m] = torch.cumsum(hist[:m], dim=0)
+    out[T1] = eq
+    return out
+
+
+def cumulative_counts_ref(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
+    """Oracle for ``cumulative_counts``: :func:`counts_ref` as float32, the
+    reference's ``(T+2,)`` contract."""
+    return counts_ref(x, boundaries).to(torch.float32)
+
+
+def bucket_sizes_from_cumulative(cum: torch.Tensor) -> torch.Tensor:
+    """Per-bucket sizes from the ``(T+2,)`` counts: bucket i holds
+    ``[b_i, b_{i+1})`` and the last bucket also ``#(x == b_T)`` (right-
+    closed).  Differences are taken in ``cum``'s own dtype: on integer
+    counts they stay exact at any total."""
+    lt, eq_last = cum[:-1], cum[-1]
+    sizes = lt[1:] - lt[:-1]
+    sizes[-1] += eq_last
+    return sizes
 
 
 def masked_cuts(ns, T: int) -> np.ndarray:

@@ -17,11 +17,27 @@ import torch
 
 from repro_torch.kernels import _lib, ref
 
-__all__ = ["argsort_pairs", "sort_rows", "summarize_rows", "sort_kv"]
+__all__ = ["argsort_pairs", "pad_to_tiles", "sort_rows", "summarize_rows", "sort_kv"]
 
 
 def _next_pow2(k: int) -> int:
     return 1 << max(0, k - 1).bit_length()
+
+
+def pad_to_tiles(flat: torch.Tensor, tile_len: int) -> torch.Tensor:
+    """Pad a 1-D tensor up to a whole number of tiles with a +inf sentinel
+    (the dtype's maximum for integers), which sorts past every real value:
+    a ragged tail becomes one partly real tile whose true length the
+    caller masks (``kernels/ops.py``), as the reference's ``pad_to_tiles``."""
+    rem = (-flat.shape[0]) % tile_len
+    if rem == 0:
+        return flat
+    if flat.is_floating_point():
+        fill = float("inf")
+    else:
+        fill = torch.iinfo(flat.dtype).max
+    pad = torch.full((rem,), fill, dtype=flat.dtype, device=flat.device)
+    return torch.cat([flat, pad])
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:

@@ -115,7 +115,7 @@ def test_cuda_pre_histogram_and_empirical_sizes_match_cpu(cuda):
 
     rng = np.random.default_rng(5)
     v = rng.integers(0, 40, size=5000).astype(np.float32)  # heavy ties
-    hs = [build_exact(part, 24) for part in np.split(v, 5)]
+    hs = [build_exact(part, 24, device="cpu") for part in np.split(v, 5)]
     h = Histogram(torch.stack([x.boundaries for x in hs]), torch.stack([x.sizes for x in hs]))
     hd = Histogram(h.boundaries.to(cuda), h.sizes.to(cuda))
     for a, b in zip(pre_histogram(hd), pre_histogram(h)):
@@ -123,3 +123,107 @@ def test_cuda_pre_histogram_and_empirical_sizes_match_cpu(cuda):
     m = merge(h, 9)
     got = empirical_sizes(torch.from_numpy(v).to(cuda), m.boundaries.to(cuda))
     assert torch.equal(got.cpu(), empirical_sizes(v, m.boundaries))
+
+
+def bucket_cases(seed: int = 7):
+    """(name, values, boundaries) on the CPU: ties, NaN/±inf/±0, b_T = +inf,
+    int32 above 2^24, NaN boundaries, T+1 in {2, 33, 255, 2049}, one T+1
+    that needs more than 48 KB of shared memory and one too wide for it,
+    n in {0, 1, 5000, 2^20 + 3}."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for T1 in (2, 33, 255, 2049):
+        for n in (0, 1, 5000, (1 << 20) + 3):
+            x = np.round(rng.normal(size=n) * 4).astype(np.float32)
+            b = np.sort(np.round(rng.normal(size=T1) * 4)).astype(np.float32)  # ties
+            out.append((f"T+1={T1} n={n}", x, b))
+    x = rng.normal(size=70_000).astype(np.float32)
+    x[rng.integers(0, x.size, 4000)] = rng.choice(
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), 4000
+    )
+    b = np.sort(np.concatenate([rng.normal(size=30), [-0.0, 0.0, 0.0]])).astype(np.float32)
+    out.append(("NaN/inf/±0 values", x, b))
+    out.append(("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32)))
+    out.append(("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32)))
+    out.append(("NaN boundaries", x, np.concatenate([b[:20], [np.nan] * 13]).astype(np.float32)))
+    xi = rng.integers(2**24, 2**31 - 1, size=100_000, dtype=np.int32)
+    bi = np.sort(rng.integers(2**24, 2**31 - 1, size=65)).astype(np.float32)
+    out.append(("int32 above 2^24", xi, bi))
+    out.append(("T+1=20001 (shared above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32)))
+    out.append(("T+1=40001 (global)", x, np.sort(rng.normal(size=40_001)).astype(np.float32)))
+    return out
+
+
+def test_cuda_bucket_count_matches_plain(cuda):
+    for name, x, b in bucket_cases():
+        xd = torch.from_numpy(x).to(cuda)
+        bd = torch.from_numpy(b).to(cuda)
+        kernels.reset_launches()
+        got = kernels.cumulative_counts(xd, bd)
+        assert kernels.LAUNCHES["bucket_count"] == 1, name
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        want = ref.cumulative_counts_ref(torch.from_numpy(x), torch.from_numpy(b))
+        assert torch.equal(got.cpu(), want), name
+        assert torch.equal(ref.cumulative_counts_ref(xd, bd).cpu(), want), name
+        sizes = kernels.bucket_sizes(xd, bd)
+        assert torch.equal(sizes.cpu(), kernels.bucket_sizes(x, b, device="cpu")), name
+
+
+def test_cuda_bucket_count_rejects_unsorted_boundaries(cuda):
+    x = torch.ones(10, device=cuda)
+    for b in ([0.0, 2.0, 1.0], [0.0, float("nan"), 1.0]):
+        with pytest.raises(ValueError):
+            kernels.cumulative_counts(x, torch.tensor(b, device=cuda))
+
+
+def test_cuda_summarize_tiles_matches_cpu(cuda):
+    rng = np.random.default_rng(8)
+    for n in (1, 4096, 3 * 4096 + 517):
+        x = rng.lognormal(-1.8, 0.55, size=n).astype(np.float32)
+        kernels.reset_launches()
+        hg = kernels.summarize_tiles(x, tile_len=1024, T_tile=64, T_out=128)
+        assert kernels.LAUNCHES["tile_sort"] == 1 and kernels.LAUNCHES["merge_cut"] == 1
+        hc = kernels.summarize_tiles(x, tile_len=1024, T_tile=64, T_out=128, device="cpu")
+        assert hg.boundaries.device.type == "cuda"
+        assert torch.equal(hg.boundaries.cpu(), hc.boundaries)
+        assert torch.equal(hg.sizes.cpu(), hc.sizes)
+
+
+def test_cuda_numpy_input_runs_on_the_card(cuda):
+    from repro_torch.core import TenantRegistry, build_exact, merge_stacks
+
+    rng = np.random.default_rng(9)
+    v = rng.normal(size=5000).astype(np.float32)
+    assert build_exact(v, 16).boundaries.device.type == "cuda"
+    b = np.sort(rng.normal(size=(2, 3, 17)), axis=-1).astype(np.float32)
+    s = np.full((2, 3, 16), 4.0, np.float32)
+    kernels.reset_launches()
+    bo, so = merge_stacks(b, s, 5)
+    assert bo.device.type == "cuda" and kernels.LAUNCHES["merge_cut"] == 1
+    assert kernels.bucket_sizes(v, np.sort(v)[::500]).device.type == "cuda"
+    assert TenantRegistry(num_buckets=8).device.type == "cuda"
+
+
+def test_cuda_registry_round_one_merge_bit_equal_to_cpu(cuda):
+    from repro_torch.core import TenantRegistry
+
+    rng = np.random.default_rng(10)
+    data = {f"t{t}": {d: rng.gumbel(size=3000).astype(np.float32) for d in range(9)} for t in range(6)}
+    regs = [TenantRegistry(num_buckets=32, shared_arena=True, device=d) for d in (cuda, "cpu")]
+    for reg in regs:
+        for name, parts in data.items():
+            for d, v in parts.items():
+                reg.ingest_async(name, d, v)
+        reg.flush()
+    qs = [(name, 0, 8) for name in data] + [("t2", 3, 5), ("t4", 1, 7)]
+    kernels.reset_launches()
+    regs[0].merge_dispatches = 0
+    regs[0].reset_host_row_copies()
+    got = regs[0].query_many(qs, 7)
+    assert regs[0].merge_dispatches == 1 and regs[0].host_row_copies == 0
+    assert kernels.LAUNCHES["merge_cut"] == 1
+    for (hg, eg), (hc, ec) in zip(got, regs[1].query_many(qs, 7)):
+        assert np.array_equal(hg.boundaries, hc.boundaries) and np.array_equal(hg.sizes, hc.sizes)
+        assert eg == ec
+    for reg in regs:
+        reg.close()

@@ -113,7 +113,7 @@ def test_build_exact_bit_equal(dtype, n, T):
         v = rng.integers(-40, 40, size=n).astype(dtype)
     else:
         v = (rng.normal(size=n) * 50).astype(dtype)
-    assert_same_hist(R.build_exact(jnp.asarray(v), T), P.build_exact(v, T))
+    assert_same_hist(R.build_exact(jnp.asarray(v), T), P.build_exact(v, T, device="cpu"))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32, np.int64])
@@ -132,36 +132,36 @@ def test_build_exact_padded_batched_ragged(dtype):
         ns.append(n)
     stack = np.stack(rows)
     hr = R.build_exact_padded_batched(jnp.asarray(stack), np.asarray(ns, np.int32), T)
-    hp = P.build_exact_padded_batched(stack, ns, T)
+    hp = P.build_exact_padded_batched(stack, ns, T, device="cpu")
     assert_same_hist(hr, hp)
     for i, n in enumerate(lens):  # and each row equals the unpadded build
         assert_same_hist(R.build_exact(jnp.asarray(stack[i, :n]), T), P.Histogram(hp.boundaries[i], hp.sizes[i]))
     one_r = R.build_exact_padded(jnp.asarray(stack[2]), ns[2], T)
-    assert_same_hist(one_r, P.build_exact_padded(stack[2], ns[2], T))
+    assert_same_hist(one_r, P.build_exact_padded(stack[2], ns[2], T, device="cpu"))
 
 
 def test_build_exact_batched_and_pad_pow2():
     v = np.random.default_rng(6).normal(size=(3, 50)).astype(np.float32)
-    assert_same_hist(R.build_exact_batched(jnp.asarray(v), 8), P.build_exact_batched(v, 8))
+    assert_same_hist(R.build_exact_batched(jnp.asarray(v), 8), P.build_exact_batched(v, 8, device="cpu"))
     for n in (1, 5, 64, 65):
         a, na = R.pad_pow2(np.arange(n, dtype=np.int32), min_len=8)
         b, nb = P.pad_pow2(np.arange(n, dtype=np.int32), min_len=8)
         assert na == nb and np.array_equal(a, b) and a.dtype == b.dtype
     with pytest.raises(ValueError):
-        P.build_exact(np.zeros(0, np.float32), 4)
+        P.build_exact(np.zeros(0, np.float32), 4, device="cpu")
 
 
 @pytest.mark.parametrize("seed,k,T,beta,dup", GOLDEN)
 def test_merge_golden_bit_equal(seed, k, T, beta, dup):
     srcs = golden_sources(seed, k, T, dup)
     hr, hp = stacked([R.build_exact(jnp.asarray(v), T) for v in srcs])
-    mr, mp = R.merge(hr, beta), P.merge(hp, beta)
+    mr, mp = R.merge(hr, beta), P.merge(hp, beta, device="cpu")
     assert_same_hist(mr, mp)
-    pr, pp = R.pre_histogram(hr), P.pre_histogram(hp)
+    pr, pp = R.pre_histogram(hr), P.pre_histogram(hp, device="cpu")
     assert_same(pr[0], pp[0])
     assert_same(pr[1], pp[1])
     sr = R.merge_histograms_sequential([R.build_exact(jnp.asarray(v), T) for v in srcs], beta)
-    sp = P.merge_histograms_sequential([P.build_exact(v, T) for v in srcs], beta)
+    sp = P.merge_histograms_sequential([P.build_exact(v, T, device="cpu") for v in srcs], beta, device="cpu")
     assert_same_hist(sr, sp)
 
 
@@ -173,12 +173,12 @@ def test_merge_random_and_merge_list(seed):
     srcs = [(rng.gumbel(size=int(rng.choice([200, 333]))) * 10).astype(np.float32) for _ in Ts]
     beta = int(rng.integers(1, 50))
     hr = [R.build_exact(jnp.asarray(v), t) for v, t in zip(srcs, Ts)]
-    hp = [P.build_exact(v, t) for v, t in zip(srcs, Ts)]
-    assert_same_hist(R.merge_list(hr, beta), P.merge_list(hp, beta))
+    hp = [P.build_exact(v, t, device="cpu") for v, t in zip(srcs, Ts)]
+    assert_same_hist(R.merge_list(hr, beta), P.merge_list(hp, beta, device="cpu"))
     # integer summaries keep int32 boundaries through merge_list
     ir = [R.build_exact(jnp.asarray(v.astype(np.int32)), t) for v, t in zip(srcs, Ts)]
-    ip = [P.build_exact(v.astype(np.int32), t) for v, t in zip(srcs, Ts)]
-    assert_same_hist(R.merge_list(ir, beta), P.merge_list(ip, beta))
+    ip = [P.build_exact(v.astype(np.int32), t, device="cpu") for v, t in zip(srcs, Ts)]
+    assert_same_hist(R.merge_list(ir, beta), P.merge_list(ip, beta, device="cpu"))
 
 
 def test_merge_above_2_pow_24_records_what_differs():
@@ -194,7 +194,7 @@ def test_merge_above_2_pow_24_records_what_differs():
     cuts = (np.arange(T + 1)[None, :] * n_src[:, None]) // T
     s = np.diff(cuts, axis=-1).astype(np.float32)
     hr = R.merge(R.Histogram(jnp.asarray(b), jnp.asarray(s)), beta)
-    hp = P.merge(P.Histogram(b, s), beta)
+    hp = P.merge(P.Histogram(b, s), beta, device="cpu")
     n = float(n_src.sum())
     assert n > 2**24
     ulp = float(np.spacing(np.float32(n)))
@@ -212,18 +212,18 @@ def test_queries_match(beta):
     rng = np.random.default_rng(beta)
     srcs = [rng.gumbel(size=300).astype(np.float32) for _ in range(3)]
     hr, hp = stacked([R.build_exact(jnp.asarray(v), 16) for v in srcs])
-    mr, mp = R.merge(hr, beta), P.merge(hp, beta)
+    mr, mp = R.merge(hr, beta), P.merge(hp, beta, device="cpu")
     q = np.linspace(0.0, 1.0, 21)
-    np.testing.assert_allclose(np.asarray(R.quantile(mr, jnp.asarray(q))), P.quantile(mp, q).numpy(), rtol=1e-6)
-    np.testing.assert_allclose(float(R.quantile(mr, 0.5)), float(P.quantile(mp, 0.5)), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(R.quantile(mr, jnp.asarray(q))), P.quantile(mp, q, device="cpu").numpy(), rtol=1e-6)
+    np.testing.assert_allclose(float(R.quantile(mr, 0.5)), float(P.quantile(mp, 0.5, device="cpu")), rtol=1e-6)
     x = np.concatenate([np.linspace(-3, 6, 37), [-100.0, 100.0]]).astype(np.float32)
     np.testing.assert_allclose(
-        np.asarray(R.cdf_interp(mr, jnp.asarray(x))), P.cdf_interp(mp, x).numpy(), rtol=1e-6
+        np.asarray(R.cdf_interp(mr, jnp.asarray(x))), P.cdf_interp(mp, x, device="cpu").numpy(), rtol=1e-6
     )
-    assert_same(R.cdf_left_collapse(mr, jnp.asarray(x)), P.cdf_left_collapse(mp, x))
+    assert_same(R.cdf_left_collapse(mr, jnp.asarray(x)), P.cdf_left_collapse(mp, x, device="cpu"))
     np.testing.assert_allclose(
         np.asarray(R.range_count(mr, jnp.asarray(x[:-1]), jnp.asarray(x[1:]))),
-        P.range_count(mp, x[:-1], x[1:]).numpy(), rtol=1e-6, atol=1e-3,
+        P.range_count(mp, x[:-1], x[1:], device="cpu").numpy(), rtol=1e-6, atol=1e-3,
     )
     assert_same(mr.n, mp.n)
     assert_same(mr.cumulative(), mp.cumulative())
@@ -234,26 +234,26 @@ def test_quantile_flat_segments_and_integer_boundaries():
     s = np.array([0.0, 5.0, 0.0, 5.0], np.float32)
     hr, hp = R.Histogram(jnp.asarray(b), jnp.asarray(s)), P.Histogram(b, s)
     q = np.linspace(0.0, 1.0, 11)
-    np.testing.assert_allclose(np.asarray(R.quantile(hr, jnp.asarray(q))), P.quantile(hp, q).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(R.quantile(hr, jnp.asarray(q))), P.quantile(hp, q, device="cpu").numpy(), rtol=1e-6)
     x = np.array([-1, 0, 1, 3, 4, 9, 10], np.float32)
-    np.testing.assert_allclose(np.asarray(R.cdf_interp(hr, jnp.asarray(x))), P.cdf_interp(hp, x).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(R.cdf_interp(hr, jnp.asarray(x))), P.cdf_interp(hp, x, device="cpu").numpy(), rtol=1e-6)
 
 
 def test_error_metrics_match():
     rng = np.random.default_rng(9)
     v = rng.gumbel(size=4000).astype(np.float32)
     parts = np.split(v, 4)
-    exact_r, exact_p = R.build_exact(jnp.asarray(v), 32), P.build_exact(v, 32)
+    exact_r, exact_p = R.build_exact(jnp.asarray(v), 32), P.build_exact(v, 32, device="cpu")
     assert_same_hist(exact_r, exact_p)
     hr, hp = stacked([R.build_exact(jnp.asarray(p), 64) for p in parts])
-    mr, mp = R.merge(hr, 32), P.merge(hp, 32)
+    mr, mp = R.merge(hr, 32), P.merge(hp, 32, device="cpu")
     for fr, fp in [
-        (R.boundary_error(mr, exact_r), P.boundary_error(mp, exact_p)),
-        (R.size_error(mr, exact_r), P.size_error(mp, exact_p)),
-        (R.empirical_size_error(mr, jnp.asarray(v)), P.empirical_size_error(mp, v)),
+        (R.boundary_error(mr, exact_r), P.boundary_error(mp, exact_p, device="cpu")),
+        (R.size_error(mr, exact_r), P.size_error(mp, exact_p, device="cpu")),
+        (R.empirical_size_error(mr, jnp.asarray(v)), P.empirical_size_error(mp, v, device="cpu")),
     ]:
         np.testing.assert_allclose(float(fr), float(fp), rtol=1e-6)
-    assert_same(R.empirical_sizes(jnp.asarray(v), mr.boundaries), P.empirical_sizes(v, mp.boundaries))
+    assert_same(R.empirical_sizes(jnp.asarray(v), mr.boundaries), P.empirical_sizes(v, mp.boundaries, device="cpu"))
     assert R.theoretical_eps_max(4000, 64, 4, False) == P.theoretical_eps_max(4000, 64, 4, False)
 
 
@@ -263,15 +263,15 @@ def test_sample_histogram_held_to_its_bound():
     rng = np.random.default_rng(3)
     v = rng.gumbel(size=20_000).astype(np.float32)
     g = torch.Generator().manual_seed(0)
-    h = P.sample_histogram(v, 16, 512, g)
+    h = P.sample_histogram(v, 16, 512, g, device="cpu")
     assert float(h.boundaries[0]) == float(v.min())
     assert float(h.boundaries[-1]) == float(v.max())
     np.testing.assert_allclose(float(h.n), 20_000, rtol=0.02)
     assert np.all(np.diff(h.boundaries.numpy()) >= 0)
     merged = P.merge(P.Histogram(*[torch.stack(x) for x in zip(*[
-        P.build_exact(p, 128) for p in np.split(v, 4)
-    ])]), 16)
-    assert float(P.empirical_size_error(merged, v)) < float(P.empirical_size_error(h, v))
+        P.build_exact(p, 128, device="cpu") for p in np.split(v, 4)
+    ])]), 16, device="cpu")
+    assert float(P.empirical_size_error(merged, v, device="cpu")) < float(P.empirical_size_error(h, v, device="cpu"))
     # the reference's draw differs (jax.random vs torch.Generator); both
     # include the edges
     hr = R.sample_histogram(jnp.asarray(v), 16, 512, jax.random.PRNGKey(0))

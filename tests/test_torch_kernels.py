@@ -105,7 +105,10 @@ def test_cpu_tensors_reach_the_plain_versions_and_launch_nothing():
     s = torch.ones((4, 3, 8))
     for a, w in zip(kernels.merge_batched(b, s, 5), ref.merge_ref(b, s, 5)):
         assert torch.equal(a, w)
-    assert kernels.LAUNCHES == {"tile_sort": 0, "sort_kv": 0, "merge_cut": 0}
+    v = torch.from_numpy(rng.normal(size=500).astype(np.float32))
+    edges = torch.sort(v[::50]).values
+    assert torch.equal(kernels.cumulative_counts(v, edges), ref.cumulative_counts_ref(v, edges))
+    assert kernels.LAUNCHES == {"tile_sort": 0, "sort_kv": 0, "merge_cut": 0, "bucket_count": 0}
 
 
 def test_wrappers_reject_bad_arguments():
