@@ -12,6 +12,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    shapes the main path gives it, and time kernel, plain version and the
    PyTorch library call computing the same function (the bucket count's
    edge cases here, its scale shape in phase 4);
+   2b. the sorts' crossover sweep (row lengths 2^12 .. 2^20 at 2^28 keys,
+   resident and onesweep where both apply) and the main path's exact sort
+   shapes, uniform and skewed, each held to its plain version and timed
+   beside ``torch.sort``;
 3. the main path at the paper's configuration: ``HistogramStore`` with
    T=2032 on the card, ``ingest_many`` of 31 × 200,000 seeded Gumbel values,
    ``query_many`` of all 496 windows at β=254 — bit-equal to the same run on
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -313,6 +318,88 @@ def check_kernels(dev, rng) -> dict:
         f"{len(merge_cases)} cases x 2 dtypes + {golden} golden bit-equal")
     log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
     return out
+
+
+def sort_sweep(dev) -> dict:
+    """Times of the row sort and the kv sort: the crossover sweep over row
+    lengths 2^12 .. 2^20 at 2^28 keys a shape (each regime that can hold
+    the row, beside ``torch.sort``), then the main path's exact shapes,
+    uniform and skewed.  Every timed call is first held to its plain
+    version.  Returns the table; prints one line per shape."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref, tile_sort
+
+    total = 1 << 28
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    flat = torch.rand(total, generator=g, device=dev)
+    pay = torch.arange(total, device=dev, dtype=torch.int32)
+    sweep = []
+    for lg in range(12, 21):
+        width = 1 << lg
+        x, v = flat.view(-1, width), pay.view(-1, width)
+        row = {"width": width, "rows": total // width}
+        for kv in (False, True):
+            tag = "kv" if kv else "row"
+            regimes = ["onesweep"]
+            if width <= (tile_sort.KV_RESIDENT_LIMIT if kv else tile_sort.ROW_RESIDENT_LIMIT):
+                regimes.insert(0, "resident")
+            for regime in regimes:
+                if kv:
+                    ko, vo = kernels.sort_kv(x, v, regime=regime)
+                    assert torch.equal(vo, ref.sort_kv_ref(x, v)[1]), (width, regime)
+                    del ko, vo
+                    row[f"{tag}_{regime}_ms"] = cuda_ms(lambda: kernels.sort_kv(x, v, regime=regime))
+                else:
+                    assert torch.equal(kernels.sort_rows(x, regime=regime), torch.sort(x, dim=-1).values), (width, regime)
+                    row[f"{tag}_{regime}_ms"] = cuda_ms(lambda: kernels.sort_rows(x, regime=regime))
+        row["row_torch_sort_ms"] = cuda_ms(lambda: torch.sort(x, dim=-1))
+        row["kv_torch_sort_stable_ms"] = cuda_ms(lambda: torch.sort(x, dim=-1, stable=True))
+        sweep.append(row)
+        log("sort sweep " + json.dumps(row))
+    del flat, pay, x, v
+
+    shapes = []
+    lognormal = lambda r, w: torch.exp(torch.randn((r, w), generator=g, device=dev) * 0.55 - 1.8)
+    gumbel = lambda r, w: -torch.log(-torch.log(torch.rand((r, w), generator=g, device=dev)))
+    ties = lambda r, w: torch.randint(-50, 50, (r, w), generator=g, device=dev, dtype=torch.int32)
+    cases = [  # (name, kind, rows, width, maker)
+        ("scale Summarizer 256x2^20 gumbel", "row", 256, 1 << 20, gumbel),
+        ("paper Summarizer 31x2^18 gumbel", "row", 31, 1 << 18, gumbel),
+        ("registry Summarizer 256x2^16 lognormal", "row", 256, 1 << 16, lognormal),
+        ("tile Summarizer 17x4096 lognormal", "row", 17, 4096, lognormal),
+        ("i32 ties 64x2^16", "row", 64, 1 << 16, ties),
+        ("pull-up merge 512x4066 (L=4096)", "pairs", 512, 2 * (T + 1), gumbel),
+        ("registry query merge 1000x8224 (L=16384)", "pairs", 1000, 32 * 257, lognormal),
+        ("query merge 1000x65056 (L=65536)", "pairs", 1000, 32 * (T + 1), gumbel),
+        ("kv i32 ties 64x2^16", "kv", 64, 1 << 16, ties),
+        # skew at the sweep's size: against its 2^16-wide uniform rows
+        ("i32 ties 4096x2^16", "row", 4096, 1 << 16, ties),
+        ("lognormal 4096x2^16", "row", 4096, 1 << 16, lognormal),
+        ("kv i32 ties 4096x2^16", "kv", 4096, 1 << 16, ties),
+    ]
+    for name, kind, rows, width, make in cases:
+        x = make(rows, width)
+        if kind == "row":
+            assert same_sorted(kernels.sort_rows(x), torch.sort(x, dim=-1).values), name
+            ms = cuda_ms(lambda: kernels.sort_rows(x))
+            lib = cuda_ms(lambda: torch.sort(x, dim=-1))
+        elif kind == "pairs":
+            L = 1 << (width - 1).bit_length()
+            assert torch.equal(kernels.argsort_pairs(x, L), ref.argsort_pairs_ref(x, L)), name
+            ms = cuda_ms(lambda: kernels.argsort_pairs(x, L))
+            lib = cuda_ms(lambda: torch.sort(x, dim=-1, stable=True))
+        else:
+            v = torch.arange(x.numel(), device=dev, dtype=torch.int32).view(x.shape)
+            assert torch.equal(kernels.sort_kv(x, v)[1], ref.sort_kv_ref(x, v)[1]), name
+            ms = cuda_ms(lambda: kernels.sort_kv(x, v))
+            lib = cuda_ms(lambda: torch.sort(x, dim=-1, stable=True))
+        regime = "resident" if tile_sort.plan(width, kind != "row") else "onesweep"
+        shapes.append({"shape": name, "regime": regime, "ms": ms, "torch_sort_ms": lib})
+        log("sort shape " + json.dumps(shapes[-1]))
+        del x
+    return {"sweep": sweep, "shapes": shapes}
 
 
 GOLDEN = [  # (seed, k, T, beta, duplicate-heavy), as the JAX package's parity set
@@ -723,6 +810,24 @@ def registry(dev, tenants: int = 256, days: int = 31, n: int = 65_536) -> tuple[
     return launches, out
 
 
+def ptxas_summary(text: str) -> list[str]:
+    """``name: registers, spill bytes`` of each kernel in ``-Xptxas -v``
+    output (names mangled, cut to 60 characters)."""
+    out, name, spill = [], None, "?"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)[:60]
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs {spill} spill")
+            name = None
+    return out
+
+
 def card() -> str:
     try:
         res = subprocess.run(
@@ -770,9 +875,9 @@ def main() -> int:
         return 1
     for src in _lib.KERNELS.values():
         with open(os.path.join(_lib.build_dir(), src[:-3] + ".log")) as f:
-            ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        log(f"{src}: " + " | ".join(ptxas[:6]))
+            log(f"{src}: " + "; ".join(ptxas_summary(f.read())))
     meas = phase("2 kernels vs plain", lambda: check_kernels(dev, rng))
+    sorts = phase("2b sort sweep", lambda: sort_sweep(dev))
     main_path = phase("3 paper config", lambda: paper_config(dev))
     big = phase("4 scale", lambda: scale(dev))
     logs = phase("5 log analytics", lambda: log_analytics(dev))
@@ -797,7 +902,7 @@ def main() -> int:
     ]}
     log(json.dumps(line))
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "paper": times, "scale": big,
-                    "log_analytics": logs[1], "registry": tenants[1]}))
+                    "log_analytics": logs[1], "registry": tenants[1], "sorts": sorts}))
     log(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,42 +5,19 @@
 // lexicographic pair (key, original index) so that the result is exactly
 // argsort(key, stable=True).
 //
-// Design: the pair is one 64-bit key, (order-preserving 32-bit key << 32)
-// | original index, so the bitonic network of bitonic.cuh sorts a total
-// order and needs no payload lane.  The payload, and the key's own bits
-// (which keep -0 and NaN payloads), are gathered afterwards through the
-// index in the low word.  Positions past a row's real length get the
-// largest high word, so they sort after every real element.
-// Bound: device-memory bytes, 8 bytes a key per pass (bitonic.cuh); the
-// shared-memory tile holds 4,096 keys.
-#include "bitonic.cuh"
-
-namespace {
-
-struct LoadPair {
-  const uint32_t* src;
-  uint32_t lreal;  // real elements per row; the rest is padding
-  int dtype;
-  __device__ uint64_t operator()(uint32_t row, uint32_t g) const {
-    uint32_t hi = g < lreal ? hk::enc_key(dtype, src[(size_t)row * lreal + g])
-                            : 0xFFFFFFFFu;
-    return ((uint64_t)hi << 32) | g;
-  }
-};
-
-__global__ void kv_gather_kernel(const uint64_t* order, const uint32_t* keys,
-                                 const uint32_t* vals, uint32_t rows,
-                                 uint32_t L, uint32_t Lp, uint32_t* ko,
-                                 uint32_t* vo) {
-  uint64_t t = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (uint64_t)rows * L) return;
-  uint64_t row = t / L, base = row * L;
-  uint32_t src = (uint32_t)order[row * Lp + (t - base)];
-  ko[t] = keys[base + src];
-  vo[t] = vals[base + src];
-}
-
-}  // namespace
+// Design: the stable LSD radix sort of radix_sort.cuh on the 32-bit
+// order-preserving key; stability alone gives the (key, index) order, with
+// no 64-bit compare.  The merge's pairs (key << 32) | index carry the
+// original index through the passes and get the padding past a row's real
+// length (largest key, index = position) written directly; the standalone
+// sort carries the keys' own bits (which keep -0 and NaN payloads, encoded
+// again for each digit) and the payload itself, so nothing is gathered
+// at the end.
+// Bound: device-memory bytes.  Resident rows (up to 16,384 pairs) move
+// 8 bytes in and 8 out a pair; onesweep moves 4 + 4·16 = 68 a pair (one
+// histogram read, four passes of key and payload), against some 240 for
+// the bitonic network it replaced.
+#include "radix_sort.cuh"
 
 extern "C" {
 
@@ -48,27 +25,36 @@ const char* hk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Sorted (key, index) pairs (rows, L) of the 4-byte keys src (rows, lreal),
-// L a power of two >= lreal.
-int hk_argsort(const void* src, void* order, int rows, int lreal, int L,
-               int dtype, void* stream) {
-  LoadPair load{static_cast<const uint32_t*>(src), (uint32_t)lreal, dtype};
-  return (int)hk::bitonic_rows<uint64_t>(static_cast<uint64_t*>(order),
-                                         (uint32_t)rows, (uint32_t)L, load,
-                                         static_cast<cudaStream_t>(stream));
-}
-
-// keys and values (rows, L) in the order (rows, Lp) that hk_argsort
-// produced for them; the first L pairs of each row are the real ones.
-int hk_kv_gather(const void* order, const void* keys, const void* vals,
-                 int rows, int L, int Lp, void* ko, void* vo, void* stream) {
-  uint64_t total = (uint64_t)rows * L;
-  kv_gather_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(order), static_cast<const uint32_t*>(keys),
-      static_cast<const uint32_t*>(vals), rows, L, Lp,
-      static_cast<uint32_t*>(ko), static_cast<uint32_t*>(vo));
-  return (int)cudaGetLastError();
+// Stable sort of the 4-byte keys (rows, width).  mode 2: out0 = (rows,
+// stride) int64 pairs (key << 32) | original index, stride >= width,
+// positions past width padded.  mode 3: out0 = the sorted keys' bits, out1
+// = vals (rows, width) in the same order.  cap > 0 runs the resident kernel
+// of that capacity, cap == 0 onesweep, which uses the ping-pong buffers
+// k0, k1, i0, i1 (rows, width) and the zeroed `scratch` words
+// (tile_sort.onesweep_scratch_words).
+int hk_kv_sort(const void* keys, const void* vals, void* out0, void* out1,
+               int mode, int rows, int width, int stride, int dtype, int cap,
+               void* k0, void* k1, void* i0, void* i1, void* scratch,
+               void* stream) {
+  if (mode != hk::kPairs && mode != hk::kGather) return (int)cudaErrorInvalidValue;
+  if (mode == hk::kGather ? stride != width : stride < width)
+    return (int)cudaErrorInvalidValue;
+  hk::SortArgs a{};
+  a.src = static_cast<const uint32_t*>(keys);
+  a.vals = static_cast<const uint32_t*>(vals);
+  a.out0 = out0;
+  a.out1 = out1;
+  a.kbuf[0] = static_cast<uint32_t*>(k0);
+  a.kbuf[1] = static_cast<uint32_t*>(k1);
+  a.ibuf[0] = static_cast<uint32_t*>(i0);
+  a.ibuf[1] = static_cast<uint32_t*>(i1);
+  a.rows = (uint32_t)rows;
+  a.width = (uint32_t)width;
+  a.stride = (uint32_t)stride;
+  a.dtype = dtype;
+  a.mode = mode;
+  return (int)hk::radix_rows<true>(a, cap, static_cast<uint32_t*>(scratch),
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

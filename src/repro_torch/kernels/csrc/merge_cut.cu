@@ -12,7 +12,7 @@
 // #{m < L_real-1 : cum[m] <= t_j}.  Targets are float32 j·(n/β) as in the
 // reference.  Boundaries and payload are gathered through the sort's index
 // word, so they keep their dtype (f32 or i32) and their exact bits.
-// Bound: device-memory bytes — the sort dominates (bitonic.cuh); the scan
+// Bound: device-memory bytes — the sort dominates (radix_sort.cuh); the scan
 // reads 8 bytes and writes 4 a key, the cuts read O(β log L).
 #include <cstdint>
 #include <cuda_runtime.h>

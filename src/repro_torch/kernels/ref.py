@@ -18,6 +18,8 @@ __all__ = [
     "sort_rows_ref",
     "summarize_rows_ref",
     "sort_kv_ref",
+    "encode_keys",
+    "argsort_pairs_ref",
     "merge_ref",
 ]
 
@@ -117,6 +119,35 @@ def sort_kv_ref(keys: torch.Tensor, vals: torch.Tensor) -> tuple[torch.Tensor, t
     to both."""
     order = torch.argsort(keys, dim=-1, stable=True)
     return torch.gather(keys, -1, order), torch.gather(vals, -1, order)
+
+
+def encode_keys(x: torch.Tensor) -> torch.Tensor:
+    """The sort kernels' order-preserving 32-bit key of each float32 or
+    int32 value, as int64 in ``[0, 2^32)``: keys compare as the values do
+    under ``torch.sort`` — every NaN one key after +inf, -0 and +0 one
+    key; int32 with its sign bit flipped."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if x.dtype == torch.int32:
+        return u ^ 0x80000000
+    if x.dtype != torch.float32:
+        raise TypeError(f"keys are float32 or int32, not {x.dtype}")
+    k = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    k = torch.where(x == 0, torch.full_like(k, 0x80000000), k)
+    return torch.where(torch.isnan(x), torch.full_like(k, 0xFFFFFFFF), k)
+
+
+def argsort_pairs_ref(keys: torch.Tensor, L: int) -> torch.Tensor:
+    """Oracle for ``argsort_pairs``: ``(rows, L)`` int64 whose bits are
+    ``(key << 32) | index`` of the stable row-wise argsort of ``keys (rows,
+    l_real)``, positions ``g >= l_real`` holding ``0xFFFFFFFF << 32 | g``."""
+    rows, lreal = keys.shape
+    order = torch.argsort(keys, dim=-1, stable=True)
+    hi = torch.full((rows, L), 0xFFFFFFFF, dtype=torch.int64, device=keys.device)
+    hi[:, :lreal] = torch.gather(encode_keys(keys), 1, order)
+    lo = torch.arange(L, dtype=torch.int64, device=keys.device).repeat(rows, 1)
+    lo[:, :lreal] = order
+    # hi as a signed 32-bit word, so that hi · 2^32 + lo has the pair's bits
+    return torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
 
 
 def merge_ref(

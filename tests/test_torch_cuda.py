@@ -227,3 +227,61 @@ def test_cuda_registry_round_one_merge_bit_equal_to_cpu(cuda):
         assert eg == ec
     for reg in regs:
         reg.close()
+
+
+def regime_widths():
+    """(kv, width, regime) at each regime boundary: one below, at and one
+    past each resident limit, both regimes forced around a onesweep tile,
+    ragged widths and width 1."""
+    from repro_torch.kernels import tile_sort
+
+    out = []
+    for kv, limit in ((False, tile_sort.ROW_RESIDENT_LIMIT), (True, tile_sort.KV_RESIDENT_LIMIT)):
+        for w in (1, 3, 255, 257, 3001, limit - 1, limit, limit + 1, 70_001):
+            out.append((kv, w, None))
+        for w in (1, 4096, 8191, 8193):
+            out.append((kv, w, "onesweep"))
+        for w in (1, 513, 8192):
+            out.append((kv, w, "resident"))
+    return out
+
+
+def regime_rows(cuda, width: int, seed: int):
+    """Rows of one width: ties with ±0, NaN and ±inf; all-equal; int32."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.round(torch.randn((3, width), generator=g, device=cuda) * 4)
+    special = torch.tensor([-0.0, 0.0, float("nan"), float("inf"), -float("inf")], device=cuda)
+    at = torch.randint(0, width, (3, max(1, width // 8)), generator=g, device=cuda)
+    x.scatter_(1, at, special[torch.randint(0, 5, at.shape, generator=g, device=cuda)])
+    x[1] = 7.0  # a row of one key
+    xi = torch.randint(-50, 50, (2, width), generator=g, device=cuda, dtype=torch.int32)
+    xi[0, : min(width, 3)] = torch.tensor([-(2**31), 2**31 - 1, 0], dtype=torch.int32)[: min(width, 3)]
+    return [x, xi]
+
+
+@pytest.mark.parametrize("kv,width,regime", regime_widths())
+def test_cuda_sorts_at_regime_boundaries(cuda, kv, width, regime):
+    for x in regime_rows(cuda, width, width + kv):
+        if not kv:
+            got, want = kernels.sort_rows(x, regime=regime), ref.sort_rows_ref(x)
+            if x.is_floating_point():
+                nan = torch.isnan(want)
+                assert torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+            else:
+                assert torch.equal(got, want)
+            if regime is None:
+                ns = [width, max(1, width // 3)] + [1] * (x.shape[0] - 2)
+                T = 16 if width > 16 else 1
+                a, w = kernels.summarize_rows(x, ns, T), ref.summarize_rows_ref(x, ns, T)
+                nan = torch.isnan(w)
+                assert torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], w[~nan])
+            continue
+        vals = torch.arange(x.numel(), device=cuda, dtype=torch.int32).reshape(x.shape)
+        ko, vo = kernels.sort_kv(x, vals, regime=regime)
+        rk, rv = ref.sort_kv_ref(x, vals)
+        assert torch.equal(vo, rv)  # the exact stable order
+        assert torch.equal(ko.view(torch.int32), rk.view(torch.int32))  # and the key bits
+        L = 1 << max(0, width - 1).bit_length()
+        for Lp in (L, 2 * L):
+            pairs = kernels.argsort_pairs(x, Lp, regime=regime)
+            assert torch.equal(pairs, ref.argsort_pairs_ref(x, Lp)), Lp

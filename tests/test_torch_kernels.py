@@ -133,5 +133,5 @@ def test_every_counted_kernel_has_its_source():
     assert set(_lib.KERNELS) == set(kernels.LAUNCHES)
     for src in _lib.KERNELS.values():
         assert os.path.exists(os.path.join(_lib._CSRC, src)), src
-    assert os.path.exists(os.path.join(_lib._CSRC, "bitonic.cuh"))
+    assert os.path.exists(os.path.join(_lib._CSRC, "radix_sort.cuh"))
     assert _lib.build_dir().startswith(os.path.join(_lib._REPO, "build", "repro_torch_kernels"))
