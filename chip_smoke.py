@@ -16,6 +16,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    resident and onesweep where both apply) and the main path's exact sort
    shapes, uniform and skewed, each held to its plain version and timed
    beside ``torch.sort``;
+   2c. the bucket count at the main path's three shapes (a day, a window,
+   a registry window): device µs, wall µs and launches a call over 100
+   back-to-back calls;
 3. the main path at the paper's configuration: ``HistogramStore`` with
    T=2032 on the card, ``ingest_many`` of 31 × 200,000 seeded Gumbel values,
    ``query_many`` of all 496 windows at β=254 — bit-equal to the same run on
@@ -23,7 +26,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. scale: 365 partitions × 2^20 values, T=2032, 1,000 random windows, eight
    of them held to the reported ε against an exact sort of their values;
    the bucket count over all 3.8e8 values against one 255-boundary answer,
-   bit-equal to its plain version, and timed;
+   bit-equal to its plain version, and timed, then at the same shape over
+   one repeated value and over b_T only;
 5. log analytics (the tile Summarizer, ``repro_torch.kernels.ops``): 31
    ragged days of lognormal latencies, ``summarize_tiles`` bit-equal to its
    CPU run, ``ingest_summary`` into a T=2048 store, all 496 windows at
@@ -163,38 +167,70 @@ def check_bucket_count(dev) -> int:
     """The bucket count against its plain version on the card, bit-equal,
     at its edge cases: ties, NaN/±inf/±0 values, b_T = +inf, int32 above
     2^24, NaN boundaries, T+1 in {2, 33, 255, 2049}, one T+1 that needs
-    more than 48 KB of shared memory and one too wide for it, n in
-    {0, 1, 5000, 2^20 + 3}; and the rejection of unsorted boundaries.
-    Returns the number of cases."""
+    more than 48 KB of shared memory, the largest that fits it
+    (``bucket_count.SHARED_MAX_T1``) and the next, and two wider (one and
+    three passes over the slots), n in {0, 1, 3, 4, 5, 17, 5000, 2^20 + 3};
+    searched prefixes at the edges of the BFS table's depth (m in {0 (all
+    NaN), 1, 2^k - 1, 2^k, 2^k + 1} for k = 5, 8, 11); views of the stream
+    at offsets of 1, 2 and 3 floats; a stream of one value, one of b_T only
+    and a sorted one; one launch a call; and the rejection of unsorted
+    boundaries.  Returns the number of cases."""
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import bucket_count, ref
 
     rng = np.random.default_rng(SEED + 2)
-    cases = []
+    cases = []  # (name, values, boundaries, offset of the view in floats)
+    for m in (0, 1, 31, 32, 33, 255, 256, 257, 2047, 2048, 2049):
+        x = np.round(rng.normal(size=(1 << 16) + 1) * 4).astype(np.float32)
+        x[:4] = [np.nan, np.inf, -np.inf, -0.0]
+        b = np.sort(np.round(rng.normal(size=m) * 4)).astype(np.float32)
+        for pad in sorted({max(2 - m, 0), 3}):
+            cases.append((f"m={m} + {pad} NaN", x, np.concatenate([b, [np.nan] * pad]).astype(np.float32), 0))
+    b33 = np.sort(rng.normal(size=33)).astype(np.float32)
+    for off in (0, 1, 2, 3):
+        for n in (3, 4, 5, 17, (1 << 20) + 1):
+            cases.append((f"n={n} at offset {off}", rng.normal(size=n).astype(np.float32), b33, off))
+    b255 = np.sort(np.round(rng.normal(size=255) * 8)).astype(np.float32)
+    cases += [
+        ("one value", np.full((1 << 20) + 3, b255[100], np.float32), b255, 0),
+        ("b_T only", np.full((1 << 20) + 3, b255[-1], np.float32), b255, 1),
+        ("sorted", np.sort(rng.normal(size=(1 << 20) + 3).astype(np.float32) * 8), b255, 0),
+    ]
     for T1 in (2, 33, 255, 2049):
         for n in (0, 1, 5000, (1 << 20) + 3):
             x = np.round(rng.normal(size=n) * 4).astype(np.float32)
             b = np.sort(np.round(rng.normal(size=T1) * 4)).astype(np.float32)  # ties
-            cases.append((f"T+1={T1} n={n}", x, b))
+            cases.append((f"T+1={T1} n={n}", x, b, 0))
     x = rng.normal(size=1 << 20).astype(np.float32)
     at = rng.integers(0, x.size, 1 << 16)
     x[at] = rng.choice(np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), at.size)
     b = np.sort(np.concatenate([rng.normal(size=250), [-0.0, 0.0, 0.0, -0.0, 0.0]])).astype(np.float32)
     cases += [
-        ("NaN/inf/±0 values", x, b),
-        ("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32)),
-        ("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32)),
-        ("NaN boundaries", x, np.concatenate([b[:200], [np.nan] * 55]).astype(np.float32)),
+        ("NaN/inf/±0 values", x, b, 0),
+        ("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32), 0),
+        ("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32), 0),
+        ("NaN boundaries", x, np.concatenate([b[:200], [np.nan] * 55]).astype(np.float32), 0),
         ("int32 above 2^24", rng.integers(2**24, 2**31 - 1, size=(1 << 20) + 3, dtype=np.int32),
-         np.sort(rng.integers(2**24, 2**31 - 1, size=255)).astype(np.float32)),
-        ("T+1=20001 (shared memory above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32)),
-        ("T+1=40001 (global memory)", x, np.sort(rng.normal(size=40_001)).astype(np.float32)),
+         np.sort(rng.integers(2**24, 2**31 - 1, size=255)).astype(np.float32), 0),
+        ("T+1=20001 (shared memory above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32), 0),
+        ("T+1=40001 (global memory)", x, np.sort(rng.normal(size=40_001)).astype(np.float32), 0),
     ]
-    for name, xc, bc in cases:
-        xd, bd = torch.from_numpy(xc).to(dev), torch.from_numpy(bc).to(dev)
+    for T1 in (bucket_count.SHARED_MAX_T1, bucket_count.SHARED_MAX_T1 + 1):  # the last shared, the first global
+        b = np.sort(rng.normal(size=T1)).astype(np.float32)
+        cases.append((f"T+1={T1} ({'shared' if T1 == bucket_count.SHARED_MAX_T1 else 'global'} memory)", x, b, 0))
+    cases += [
+        ("T+1=150001 (global memory, three passes)", x, np.sort(rng.normal(size=150_001)).astype(np.float32), 0),
+    ]
+    for name, xc, bc, off in cases:
+        xd = torch.from_numpy(xc).to(dev)
+        if off:  # the same values in a view that starts off floats into its storage
+            xd = torch.cat([torch.zeros(off, dtype=xd.dtype, device=dev), xd])[off:]
+        bd = torch.from_numpy(bc).to(dev)
+        kernels.reset_launches()
         got = kernels.cumulative_counts(xd, bd)
+        assert kernels.LAUNCHES["bucket_count"] == 1, name
         want = ref.cumulative_counts_ref(xd, bd)
         assert torch.equal(got, want), f"bucket count {name}: differs from the plain version"
         assert torch.equal(got.cpu(), ref.cumulative_counts_ref(xd.cpu(), bd.cpu())), f"bucket count {name} vs CPU"
@@ -314,9 +350,70 @@ def check_kernels(dev, rng) -> dict:
     L = Q * k * T1
     b, by = bound_ms(4.0 * L + 4.0 * Q * k * (T1 - 1) + 4.0 * Q * (2 * beta_q + 1), L * np.log2(k * T1))
     out["merge_cut"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+    # the merge's device time split into its kv sort and its own scan and cut
+    items = calls_breakdown(lambda: kernels.merge_batched(bnd_q, sz_q, beta_q), 5)["device_us_by_item"]
+    own = sum(t for k, t in items.items() if "::scan_kernel" in k or "::cut_kernel" in k) / 1e3
+    out["merge_split"] = {"kv_sort_ms": sum(items.values()) / 1e3 - own, "scan_and_cut_ms": own}
+    log(f"merge query split (device ms a call): {json.dumps(out['merge_split'])}")
     log(f"merge query 1000x32x2033 beta=254: {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms; "
         f"{len(merge_cases)} cases x 2 dtypes + {golden} golden bit-equal")
     log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
+    return out
+
+
+def calls_breakdown(fn, reps: int = 100) -> dict:
+    """``reps`` back-to-back calls of ``fn``: wall µs a call (host clock to
+    a synchronise), and from a ``torch.profiler`` trace of another ``reps``
+    calls, device µs a call by item and device operations a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    items, ops = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            t = e.self_cuda_time_total if t is None else t
+            if t > 0:
+                items[e.key[:50]] = items.get(e.key[:50], 0.0) + t / reps
+                ops += e.count
+    return {"wall_us": wall, "device_us": sum(items.values()), "device_ops": ops / reps,
+            "device_us_by_item": items}
+
+
+def bucket_count_shapes(dev) -> list[dict]:
+    """The bucket count at the main path's shapes: a log-analytics day
+    (67,584 lognormal values against 2,049 boundaries), an 11-day window
+    (743,424 against 255) and a registry window (16 × 65,536 against 65),
+    each against boundaries at the stream's own quantiles.  Each is held to
+    its plain version, then timed over 100 back-to-back ``counts`` calls
+    (``calls_breakdown``) with its launches a call from the counter."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import bucket_count, ref
+
+    rng = np.random.default_rng(SEED + 15)
+    out = []
+    for name, n, T1 in (("day", 67_584, 2049), ("window", 743_424, 255), ("registry", 16 * 65_536, 65)):
+        x = torch.from_numpy(rng.lognormal(-1.8, 0.55, size=n).astype(np.float32)).to(dev)
+        b = torch.sort(x).values[torch.linspace(0, n - 1, T1, device=dev).long()].contiguous()
+        assert torch.equal(bucket_count.counts(x, b), ref.counts_ref(x, b)), name
+        kernels.reset_launches()
+        row = {"shape": name, "n": n, "T+1": T1, **calls_breakdown(lambda: bucket_count.counts(x, b))}
+        row["launches_per_call"] = kernels.reset_launches()["bucket_count"] / 201  # warm-up + 2 × 100
+        out.append(row)
+        log("bucket count shape " + json.dumps(row))
     return out
 
 
@@ -555,7 +652,7 @@ def scale(dev, days: int = 365, n: int = 1 << 20) -> dict:
         assert dev_max <= eps, (a, b, dev_max, eps)
         worst = max(worst, dev_max / eps)
         del vals
-    bc = scale_bucket_count(dev, data, ans[0][0].boundaries)
+    bc, skew = scale_bucket_count(dev, data, ans[0][0].boundaries)
     # single-window latency: uncached query() calls, each one merge launch
     lat = []
     for a, b in zip(rng.integers(0, days, size=200), rng.integers(0, days, size=200)):
@@ -572,16 +669,19 @@ def scale(dev, days: int = 365, n: int = 1 << 20) -> dict:
         "worst_dev_over_eps": worst,
         "traced": prof,
         "bucket_count": bc,
+        "bucket_count_skew": skew,
     }
     log(f"scale: {days} x {n} values ingested in {t_ing:.3f} s; 1000 windows in {t_qm:.3f} s; "
         f"8 windows within eps (worst |true - N/beta| / eps = {worst:.4f})")
     return out
 
 
-def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> dict:
+def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> tuple[dict, dict]:
     """The bucket count at the scale shape: all ``data`` (365 × 2^20) against
     one answer's 255 boundaries, bit-equal to its plain version, its sizes
-    equal to an exact sort count (total 3.8e8 > 2^24), and timed."""
+    equal to an exact sort count (total 3.8e8 > 2^24), and timed; then
+    streams of one value and of b_T only at the same shape, each bit-equal
+    and timed.  Returns the kernels line's entry and the skew times."""
     import torch
 
     from repro_torch import kernels
@@ -598,14 +698,35 @@ def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> dict:
     assert np.array_equal(sizes.cpu().numpy().astype(np.float64), true), "bucket sizes at scale: not exact"
     inside = int(((allv >= bnd[0]) & (allv <= bnd[-1])).sum())  # the rest is in no bucket
     assert true.sum() == inside, (true.sum(), inside)
-    ms = cuda_ms(lambda: kernels.cumulative_counts(allv, bnd))
-    plain = cuda_ms(lambda: ref.cumulative_counts_ref(allv, bnd))
+    # ms: CUDA events around whole calls, as every kernel of the line is
+    # timed; beside it the device time of a call and of its kernel alone,
+    # from a trace
     flat = allv.reshape(-1)
+    call = lambda: kernels.cumulative_counts(allv, bnd)
+
+    def timed(tag: str) -> dict:
+        items = calls_breakdown(call, 5)["device_us_by_item"]
+        kernel = sum(t for k, t in items.items() if "count_kernel" in k)
+        return {f"{tag}_ms": cuda_ms(call), f"{tag}_device_ms": sum(items.values()) / 1e3,
+                f"{tag}_kernel_device_ms": kernel / 1e3}
+
+    skew = timed("spread")
+    ms = skew["spread_ms"]
+    plain = cuda_ms(lambda: ref.cumulative_counts_ref(allv, bnd))
     lib = cuda_ms(lambda: torch.bincount(torch.bucketize(flat, bnd, right=True), minlength=T1 + 1))
     b, by = bound_ms(4.0 * N, N * np.log2(T1))
-    log(f"bucket count {N} values x {T1} boundaries: {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bucketize+bincount {lib:.3f} ms, bound {b:.3f} ms ({by}); sizes equal a sort count")
-    return dict(max_abs_err=max_abs(got, want), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    err = max_abs(got, want)
+    log(f"bucket count {N} values x {T1} boundaries: {ms:.3f} ms a call (device {skew['spread_device_ms']:.3f}, "
+        f"kernel {skew['spread_kernel_device_ms']:.3f}), plain {plain:.3f} ms, bucketize+bincount {lib:.3f} ms, "
+        f"bound {b:.3f} ms ({by}); sizes equal a sort count")
+    # skew at the same shape: one value inside the boundaries, then b_T only
+    del got, want, sizes
+    for name, value in (("one_value", bnd[T1 // 2]), ("b_T_only", bnd[-1])):
+        allv.fill_(value)
+        assert torch.equal(kernels.cumulative_counts(allv, bnd), ref.cumulative_counts_ref(allv, bnd)), name
+        skew.update(timed(name))
+    log(f"bucket count skew at {N} x {T1}: " + json.dumps(skew))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib), skew
 
 
 # ----------------------------------------------------------------- phase 5
@@ -878,6 +999,7 @@ def main() -> int:
             log(f"{src}: " + "; ".join(ptxas_summary(f.read())))
     meas = phase("2 kernels vs plain", lambda: check_kernels(dev, rng))
     sorts = phase("2b sort sweep", lambda: sort_sweep(dev))
+    counts = phase("2c bucket count shapes", lambda: bucket_count_shapes(dev))
     main_path = phase("3 paper config", lambda: paper_config(dev))
     big = phase("4 scale", lambda: scale(dev))
     logs = phase("5 log analytics", lambda: log_analytics(dev))
@@ -901,8 +1023,10 @@ def main() -> int:
         for name in replaces
     ]}
     log(json.dumps(line))
-    log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "paper": times, "scale": big,
-                    "log_analytics": logs[1], "registry": tenants[1], "sorts": sorts}))
+    log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
+                    "paper": times, "scale": big,
+                    "log_analytics": logs[1], "registry": tenants[1], "sorts": sorts,
+                    "bucket_count_shapes": counts}))
     log(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -3,9 +3,12 @@
 
 Replaces ``bucket_count_kernel`` of ``repro/kernels/bucket_count.py``
 (wrapper ``cumulative_counts_pallas``).  The TPU kernel compares each tile
-of the stream with every boundary (n·(T+1) compares); the CUDA kernel does
-one binary search per value and keeps integer counts, and the source note
-in ``csrc/bucket_count.cu`` says why the bound is device-memory bytes.
+of the stream with every boundary (n·(T+1) compares); the CUDA kernel
+places each value by a branch-free search of fixed depth over the
+boundaries laid out in BFS order in shared memory, keeps integer counts,
+and each block adds its own cumulative counts into the zeroed output: one
+memset and one launch a call.  The source note in ``csrc/bucket_count.cu``
+says why the bound is device-memory bytes; :func:`grid` sizes the launch.
 
 Two differences from the reference, both on purpose:
 
@@ -28,14 +31,48 @@ from repro_torch.device import as_tensor, home
 from repro_torch.kernels import _lib, ref
 from repro_torch.kernels.tile_sort import _check_cuda
 
-__all__ = ["counts", "cumulative_counts"]
+__all__ = ["counts", "cumulative_counts", "grid"]
+
+# geometry of csrc/bucket_count.cu (tests/test_torch_bucket_layout.py holds
+# these to its constants)
+THREADS = 512  # kThreads
+BLOCKS_PER_SM = 1  # kBlocksPerSM, the kernel's launch bound
+ROUND = THREADS * 4  # kRound: float4s of a full round, four a thread
+MAX_ROUNDS = ((1 << 31) - 1) // (4 * ROUND)  # full rounds a block counts below 2^31 values
+SHARED_MAX_T1 = 25_087  # the largest T+1 whose table and one histogram fit shared memory
+
+
+def grid(n: int, T1: int, sms: int) -> tuple[int, int]:
+    """``(blocks, float4s a block round)`` of one bucket-count launch over
+    ``n`` values against ``T1`` boundaries on a card of ``sms`` SMs.
+
+    At most one block an SM, none that counts fewer values than half the
+    ``T1 + 1`` cumulative counts it adds to the output (one atomic each),
+    and at least one.  Blocks count full rounds (four float4s a thread),
+    block g the rounds g, g + blocks, ..., where the stream's full rounds
+    fill at least half of those blocks, with more blocks if one would
+    count 2^31 values (its shared counts are 32-bit).  A smaller stream is
+    cut into one short round a block, in whole warps of float4s, so that
+    it still spreads over the SMs."""
+    q = n // 4
+    rounds = -(-q // ROUND)
+    blocks = max(1, min(sms * BLOCKS_PER_SM, 2 * n // (T1 + 1)))
+    if 2 * rounds >= blocks:
+        return max(min(blocks, rounds), -(-q // (ROUND * MAX_ROUNDS))), ROUND
+    per = 32 * max(1, -(-q // (32 * blocks)))
+    return max(1, -(-q // per)), per
 
 
 def counts(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
     """Exact int64 ``(T+2,)`` counts ``[#(x < b_j)]_{j<=T} ++ [#(x == b_T)]``
     of the float32 values of ``x`` (any shape; other dtypes are cast to
     float32 first, as the reference casts them).  The boundaries
-    ``(T+1,)`` follow ``x`` to its device."""
+    ``(T+1,)`` follow ``x`` to its device.
+
+    On the card the kernel launches before the boundaries are checked: a
+    copy of them comes back to the host while it runs, and boundaries that
+    are not sorted raise ``ValueError`` then (the launch's answer is
+    dropped), so that the card never waits on the host's check."""
     flat = x.reshape(-1)
     if flat.dtype != torch.float32:
         flat = flat.to(torch.float32)
@@ -44,20 +81,24 @@ def counts(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
         raise ValueError("need at least two boundaries (T >= 1)")
     if flat.device.type == "cpu":
         return ref.counts_ref(flat, b)
-    m = ref.count_prefix(b.cpu().numpy())
     flat, b = flat.contiguous(), b.contiguous()
     _check_cuda(flat, b)
-    T1 = b.shape[0]
-    hist = torch.empty(m + 2, dtype=torch.int64, device=flat.device)
-    out = torch.empty(T1 + 1, dtype=torch.int64, device=flat.device)
+    T1, n = b.shape[0], flat.shape[0]
+    host = torch.empty(T1, dtype=torch.float32, pin_memory=True)
+    host.copy_(b, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(flat.device))
+    out = torch.empty(T1 + 1, dtype=torch.int64, device=flat.device)  # the kernel zeroes it
     sms = torch.cuda.get_device_properties(flat.device).multi_processor_count
+    blocks, per = grid(n, T1, sms)
     lib = _lib.library("bucket_count")
     err = lib.hk_bucket_count(
-        flat.data_ptr(), flat.shape[0], b.data_ptr(), T1, m,
-        hist.data_ptr(), out.data_ptr(), sms, _lib.stream(flat),
+        flat.data_ptr(), n, b.data_ptr(), T1, blocks, per, out.data_ptr(), _lib.stream(flat),
     )
     _lib.check(lib, err, "bucket count")
     _lib.count("bucket_count")
+    copied.synchronize()
+    ref.count_prefix(host.numpy())  # raises on boundaries that are not histogram boundaries
     return out
 
 

@@ -38,7 +38,7 @@ def count_prefix(boundaries: np.ndarray) -> int:
     m = int(np.argmax(nan)) if nan.any() else b.shape[0]
     if not nan[m:].all():
         raise ValueError("boundaries hold NaN before a number: NaN may only end them")
-    if np.any(b[1:m] < b[: m - 1]):
+    if np.any(b[1:m] < b[: max(m - 1, 0)]):
         raise ValueError("boundaries must be non-decreasing (histogram boundaries)")
     return m
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import ref
+from repro_torch.kernels import bucket_count, ref
 
 
 @pytest.fixture
@@ -126,37 +126,60 @@ def test_cuda_pre_histogram_and_empirical_sizes_match_cpu(cuda):
 
 
 def bucket_cases(seed: int = 7):
-    """(name, values, boundaries) on the CPU: ties, NaN/±inf/±0, b_T = +inf,
-    int32 above 2^24, NaN boundaries, T+1 in {2, 33, 255, 2049}, one T+1
-    that needs more than 48 KB of shared memory and one too wide for it,
-    n in {0, 1, 5000, 2^20 + 3}."""
+    """(name, values, boundaries, offset) on the CPU: ties, NaN/±inf/±0,
+    b_T = +inf, int32 above 2^24, NaN boundaries, T+1 in {2, 33, 255, 2049},
+    one T+1 that needs more than 48 KB of shared memory, the largest that
+    fits it (``bucket_count.SHARED_MAX_T1``) and the next, and two wider (one
+    and three passes over the slots), n in {0, 1, 3, 4, 5, 17, 5000, 2^20 + 3}; searched prefixes at the
+    edges of the BFS table's depth (m in {0, 1, 2^k - 1, 2^k, 2^k + 1} for
+    k = 5, 8, 11); streams that start 1, 2 or 3 floats past a 16-byte
+    boundary (``offset``); a stream of one value, one of b_T only and a
+    sorted one."""
     rng = np.random.default_rng(seed)
     out = []
+    for m in (0, 1, 31, 32, 33, 255, 256, 257, 2047, 2048, 2049):
+        x = np.round(rng.normal(size=5000) * 4).astype(np.float32)
+        x[:4] = [np.nan, np.inf, -np.inf, -0.0]
+        b = np.sort(np.round(rng.normal(size=m) * 4)).astype(np.float32)
+        for pad in {max(2 - m, 0), 3}:
+            out.append((f"m={m} pad={pad}", x, np.concatenate([b, [np.nan] * pad]).astype(np.float32), 0))
+    b33 = np.sort(rng.normal(size=33)).astype(np.float32)
+    for off in (0, 1, 2, 3):
+        for n in (3, 4, 5, 17, 70_001):
+            out.append((f"n={n} offset={off}", rng.normal(size=n).astype(np.float32), b33, off))
+    b255 = np.sort(np.round(rng.normal(size=255) * 8)).astype(np.float32)
+    spread = rng.normal(size=70_003).astype(np.float32) * 8
+    out.append(("one value", np.full(70_003, b255[100], np.float32), b255, 0))
+    out.append(("all b_T", np.full(70_003, b255[-1], np.float32), b255, 1))
+    out.append(("sorted", np.sort(spread), b255, 0))
     for T1 in (2, 33, 255, 2049):
         for n in (0, 1, 5000, (1 << 20) + 3):
             x = np.round(rng.normal(size=n) * 4).astype(np.float32)
             b = np.sort(np.round(rng.normal(size=T1) * 4)).astype(np.float32)  # ties
-            out.append((f"T+1={T1} n={n}", x, b))
+            out.append((f"T+1={T1} n={n}", x, b, 0))
     x = rng.normal(size=70_000).astype(np.float32)
     x[rng.integers(0, x.size, 4000)] = rng.choice(
         np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), 4000
     )
     b = np.sort(np.concatenate([rng.normal(size=30), [-0.0, 0.0, 0.0]])).astype(np.float32)
-    out.append(("NaN/inf/±0 values", x, b))
-    out.append(("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32)))
-    out.append(("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32)))
-    out.append(("NaN boundaries", x, np.concatenate([b[:20], [np.nan] * 13]).astype(np.float32)))
+    out.append(("NaN/inf/±0 values", x, b, 0))
+    out.append(("b_T = +inf", x, np.concatenate([b[:-1], [np.inf]]).astype(np.float32), 0))
+    out.append(("b_0 = -inf", x, np.concatenate([[-np.inf], b[1:]]).astype(np.float32), 0))
+    out.append(("NaN boundaries", x, np.concatenate([b[:20], [np.nan] * 13]).astype(np.float32), 0))
     xi = rng.integers(2**24, 2**31 - 1, size=100_000, dtype=np.int32)
     bi = np.sort(rng.integers(2**24, 2**31 - 1, size=65)).astype(np.float32)
-    out.append(("int32 above 2^24", xi, bi))
-    out.append(("T+1=20001 (shared above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32)))
-    out.append(("T+1=40001 (global)", x, np.sort(rng.normal(size=40_001)).astype(np.float32)))
+    out.append(("int32 above 2^24", xi, bi, 0))
+    out.append(("T+1=20001 (shared above 48 KB)", x, np.sort(rng.normal(size=20_001)).astype(np.float32), 0))
+    out.append(("T+1=40001 (global)", x, np.sort(rng.normal(size=40_001)).astype(np.float32), 0))
+    for T1 in (bucket_count.SHARED_MAX_T1, bucket_count.SHARED_MAX_T1 + 1):  # the last shared, the first global
+        out.append((f"T+1={T1}", x, np.sort(rng.normal(size=T1)).astype(np.float32), 0))
+    out.append(("T+1=150001 (global, three passes)", x, np.sort(rng.normal(size=150_001)).astype(np.float32), 0))
     return out
 
 
 def test_cuda_bucket_count_matches_plain(cuda):
-    for name, x, b in bucket_cases():
-        xd = torch.from_numpy(x).to(cuda)
+    for name, x, b, off in bucket_cases():
+        xd = torch.from_numpy(np.concatenate([np.zeros(off, np.float32), x]).astype(x.dtype)).to(cuda)[off:]
         bd = torch.from_numpy(b).to(cuda)
         kernels.reset_launches()
         got = kernels.cumulative_counts(xd, bd)

@@ -110,6 +110,7 @@ def test_inf_last_boundary_follows_the_oracle_not_the_padded_kernel():
         ("nan boundaries at the end", [0.0, 1.0, 2.0, np.nan, 5.0], [0.5, 1.5, np.nan, np.nan]),
         ("ties", [1.0, 1.0, 1.0, 2.0, 2.0, 3.0], [1.0, 1.0, 2.0, 2.0, 3.0]),
         ("empty stream", [], [0.0, 1.0]),
+        ("all boundaries nan", [0.0, 1.0, np.inf, np.nan], [np.nan, np.nan, np.nan]),
     ],
 )
 def test_cumulative_counts_edge_cases_match_the_oracle(name, x, b):
