@@ -11,7 +11,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version and the
    PyTorch library call computing the same function (the bucket count's
-   edge cases here, its scale shape in phase 4);
+   edge cases here, its scale shape in phase 4; the merge in both its
+   regimes, resident and long, bit for bit in float32 and int32, with
+   non-finite boundaries, n = 0 problems and β > k(T+1));
    2b. the sorts' crossover sweep (row lengths 2^12 .. 2^20 at 2^28 keys,
    resident and onesweep where both apply) and the main path's exact sort
    shapes, uniform and skewed, each held to its plain version and timed
@@ -38,14 +40,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    dashboard refresh of 256 windows in one merge with zero host row
    copies, 1,000 random windows, the first 8 tenants bit-equal to a CPU
    registry, 32 windows' true occupancy within ε;
-7. report: the kernels JSON line, throughput/latency, the card.
+7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
+   phases 3–6, in each regime that holds it: device µs a call by item,
+   wall µs and launches a call (the shapes also go to
+   ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
+8. report: the kernels JSON line, throughput/latency, the card.
 
 Phases 3, 5 and 6 are the main paths: each is run with the launch counts
 set to 0 just before it and read just after, and fails unless every kernel
-of its path was launched.
+of its path was launched; the run fails unless each kernel was launched on
+the three together (the kv sort only sorts merges too long for one block:
+the log analytics path's T=2048 window merges).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
-Writes nothing outside ``build/`` (the kernel build).
+Writes nothing outside ``build/`` (the kernel build, the merge shapes).
 """
 from __future__ import annotations
 
@@ -143,7 +151,7 @@ def max_abs(a, b) -> float:
     return float(d.max())
 
 
-def summary_inputs(rng, Q: int, k: int, lo: int, hi: int, ties: bool, device):
+def summary_inputs(rng, Q: int, k: int, lo: int, hi: int, ties: bool, device, T: int = T):
     """Q problems of k exact T-bucket summaries: sorted boundaries, sizes
     of the masked cuts of a random partition length in [lo, hi)."""
     import torch
@@ -314,51 +322,216 @@ def check_kernels(dev, rng) -> dict:
     log(f"kv sort 1000x65536: {ms:.3f} ms, plain {plain:.3f} ms, torch.sort {lib:.3f} ms, bound {b:.3f} ms")
     del keys, vals, ko, vo, rk, rv
 
-    # -- merge: pull-up, query, ties, int32 boundaries, beta = 1
-    merge_cases = [
-        ("pull-up Q=512 k=2 beta=2032", 512, 2, T, 200_000, 200_001, False),
-        ("query Q=1000 k=32 beta=254", 1000, 32, BETA, 150_000, 250_000, False),
-        ("ties Q=64 k=16 beta=254", 64, 16, BETA, T, 400_000, True),
-        ("beta=1 Q=8 k=5", 8, 5, 1, T, 5000, False),
+    out.update(check_merge(dev, rng))
+    log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
+    return out
+
+
+# the kernels every path with a bucket count launches; the kv sort runs only
+# in a merge too long for one block, so it is held to the three main paths
+# together (main)
+PATH_KERNELS = ("tile_sort", "merge_cut", "bucket_count")
+# the merge's own kernels in a trace (csrc/merge_cut.cu)
+MERGE_KERNELS = ("resident_merge_kernel", "long_merge_kernel")
+
+
+def merge_bits_equal(got, want) -> bool:
+    """Equal dtypes and equal bits of boundaries and sizes (NaN, -0 too)."""
+    import torch
+
+    return all(a.dtype == w.dtype and torch.equal(a.view(torch.int32), w.view(torch.int32)) for a, w in zip(got, want))
+
+
+def merge_bytes(Q: int, k: int, T1: int, beta: int) -> float:
+    """Device-memory bytes a merge call must move: the boundaries and sizes
+    read once, the β+1 boundaries and β sizes written once."""
+    return 4.0 * Q * (k * T1 + k * (T1 - 1) + 2 * beta + 1)
+
+
+def merge_bound_ms(Q: int, k: int, T1: int, beta: int) -> float:
+    return bound_ms(merge_bytes(Q, k, T1, beta), 0)[0]
+
+
+def merge_regimes(k: int, T1: int) -> list[str]:
+    """The merge regimes that hold k summaries of T1 - 1 buckets, the one
+    the wrapper picks first."""
+    from repro_torch.kernels import merge_cut
+
+    return ["resident", "long"] if merge_cut.plan(k, T1 - 1) else ["long"]
+
+
+def merged(bnd, sz, beta: int, regime: str, name: str):
+    """One merge call in ``regime``, its launches checked: one merge
+    kernel, and the kv sort exactly when the regime is long."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    out = kernels.merge_batched(bnd, sz, beta, regime=regime)
+    got = kernels.reset_launches()
+    assert got["merge_cut"] == 1 and got["sort_kv"] == (regime == "long"), (name, regime, got)
+    return out
+
+
+def check_merge(dev, rng) -> dict:
+    """The merge against its plain version on the card, bit for bit, in
+    every regime that holds each case (``regime="resident"`` where the
+    problem fits, ``"long"`` on all), float32 and int32: pull-ups, paper
+    and registry queries, ties, β = 1, β > k(T+1), a Q=1 call as
+    ``summarize_tiles`` makes it, the resident capacity's edges, ±0/±inf/NaN
+    boundaries, n = 0 problems and zero-mass pad rows; the golden cases;
+    the query shape against the CPU.  Then the timed shape (Q=1000, k=32,
+    T=2032, β=254): whole calls, the plain version, the bound, and the
+    device time split into the kv sort and the merge's own kernel.
+    Returns the kernels line's entries."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    cases = [  # (name, Q, k, T, β, lo, hi, ties)
+        ("pull-up Q=512 k=2 beta=2032", 512, 2, T, T, 200_000, 200_001, False),
+        ("query Q=1000 k=32 beta=254", 1000, 32, T, BETA, 150_000, 250_000, False),
+        ("ties Q=64 k=16 beta=254", 64, 16, T, BETA, T, 400_000, True),
+        ("beta=1 Q=8 k=5", 8, 5, T, 1, T, 5000, False),
+        ("registry query Q=1000 k=32 T=256 beta=64", 1000, 32, 256, 64, 256, 65_537, False),
+        ("summarize_tiles Q=1 k=17 T=512 beta=2048", 1, 17, 512, 2048, 4096, 4097, False),
+        ("beta > k(T+1) Q=16 k=2 T=3 beta=20", 16, 2, 3, 20, 3, 40, True),
+        ("k(T+1)=16384 Q=4 k=64 T=255", 4, 64, 255, BETA, 255, 100_000, True),
+        ("k(T+1)=16385 Q=4 k=5 T=3276", 4, 5, 3276, BETA, 3276, 100_000, True),
     ]
-    for name, Q, k, beta, lo, hi, ties in merge_cases:
-        bnd, sz = summary_inputs(rng, Q, k, lo, hi, ties, dev)
-        bo, so = kernels.merge_batched(bnd, sz, beta)
-        rb, rs = ref.merge_ref(bnd, sz, beta)
-        assert float(sz.sum(dim=(1, 2)).max()) < 2**24
-        assert torch.equal(bo, rb) and torch.equal(so, rs), f"merge {name}: not bit-equal"
-        bi = bnd.to(torch.int32)
-        bo, so = kernels.merge_batched(bi, sz, beta)
-        rb, rs = ref.merge_ref(bi, sz, beta)
-        assert torch.equal(bo, rb) and torch.equal(so, rs), f"merge {name} int32: not bit-equal"
-        if name.startswith("query"):
-            bnd_q, sz_q, beta_q = bnd, sz, beta
-            # and against the plain version on the CPU, for 64 problems
-            kb, ks = kernels.merge_batched(bnd[:64].contiguous(), sz[:64].contiguous(), beta)
-            cb, cs = ref.merge_ref(bnd[:64].cpu(), sz[:64].cpu(), beta)
-            assert torch.equal(kb.cpu(), cb) and torch.equal(ks.cpu(), cs), f"merge {name} vs CPU"
-        elif name.startswith("pull-up"):
-            pull_ms = cuda_ms(lambda: kernels.merge_batched(bnd, sz, beta))
-            log(f"merge {name}: {pull_ms:.3f} ms")
+    inputs = {}
+    for name, Q, k, Tc, beta, lo, hi, ties in cases:
+        inputs[name] = (*summary_inputs(rng, Q, k, lo, hi, ties, dev, T=Tc), beta)
+    # non-finite boundaries, n = 0 problems and zero-mass pad rows, on the ties case
+    b, sz, beta = (x.clone() if torch.is_tensor(x) else x for x in inputs["ties Q=64 k=16 beta=254"])
+    b[0, 0, -1], b[1, 1, 0], b[2, 2, 100:] = float("inf"), -float("inf"), float("nan")
+    b[3, 0, :3] = torch.tensor([-0.0, 0.0, -0.0], device=dev)
+    sz[4] = 0.0
+    sz[5, 1:] = 0.0
+    b[6, 8:] = b[6, 7, -1]
+    sz[6, 8:] = 0.0
+    inputs["±0/±inf/NaN, n=0, pad rows Q=64 k=16"] = (b, sz, beta)
+    n_checked = 0
+    for name, (bnd, sz, beta) in inputs.items():
+        assert float(sz.sum(dim=(1, 2)).max()) < 2**24, name
+        Q, k, T1 = bnd.shape
+        variants = [bnd] + ([bnd.to(torch.int32)] if bool(torch.isfinite(bnd).all()) else [])
+        for bv in variants:
+            want = ref.merge_ref(bv, sz, beta)
+            for regime in merge_regimes(k, T1):
+                assert merge_bits_equal(merged(bv, sz, beta, regime, name), want), f"merge {name} {regime} {bv.dtype}"
+                n_checked += 1
+        if name.startswith("query") or name.startswith("±0"):  # and against the CPU
+            cb, cs = bnd[:64].contiguous(), sz[:64].contiguous()
+            want = ref.merge_ref(cb.cpu(), cs.cpu(), beta)
+            for regime in merge_regimes(k, T1):
+                got = merged(cb, cs, beta, regime, name)
+                assert merge_bits_equal(tuple(x.cpu() for x in got), want), f"merge {name} {regime} vs CPU"
     golden = merge_golden(dev)
+    for name in ("pull-up Q=512 k=2 beta=2032", "registry query Q=1000 k=32 T=256 beta=64"):
+        bnd, sz, beta = inputs[name]
+        times = {r: cuda_ms(lambda: kernels.merge_batched(bnd, sz, beta, regime=r)) for r in ("resident", "long")}
+        log(f"merge {name}: " + ", ".join(f"{r} {t:.4f} ms" for r, t in times.items())
+            + f", bound {merge_bound_ms(*bnd.shape, beta):.4f} ms (bytes)")
+    bnd_q, sz_q, beta_q = inputs["query Q=1000 k=32 beta=254"]
     rb, rs = kernels.merge_batched(bnd_q, sz_q, beta_q)
     wb, ws = ref.merge_ref(bnd_q, sz_q, beta_q)
     err = max(max_abs(rb, wb), max_abs(rs, ws))
     ms = cuda_ms(lambda: kernels.merge_batched(bnd_q, sz_q, beta_q))
     plain = cuda_ms(lambda: ref.merge_ref(bnd_q, sz_q, beta_q))
     Q, k, T1 = bnd_q.shape
-    L = Q * k * T1
-    b, by = bound_ms(4.0 * L + 4.0 * Q * k * (T1 - 1) + 4.0 * Q * (2 * beta_q + 1), L * np.log2(k * T1))
-    out["merge_cut"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
-    # the merge's device time split into its kv sort and its own scan and cut
+    lreal, L = k * T1, 1 << (k * T1 - 1).bit_length()
+    b, by = bound_ms(merge_bytes(Q, k, T1, beta_q), Q * lreal * np.log2(lreal))
+    out = {"merge_cut": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)}
+    # the call's device time split into its kv sort and the merge's own kernel
     items = calls_breakdown(lambda: kernels.merge_batched(bnd_q, sz_q, beta_q), 5)["device_us_by_item"]
-    own = sum(t for k, t in items.items() if "::scan_kernel" in k or "::cut_kernel" in k) / 1e3
-    out["merge_split"] = {"kv_sort_ms": sum(items.values()) / 1e3 - own, "scan_and_cut_ms": own}
+    own = sum(t for key, t in items.items() if any(m in key for m in MERGE_KERNELS))
+    if own <= 0:
+        raise RuntimeError(f"no merge kernel ({MERGE_KERNELS}) in the trace: {sorted(items)}")
+    out["merge_split"] = {
+        "kv_sort_ms": (sum(items.values()) - own) / 1e3,
+        "scan_and_cut_ms": own / 1e3,
+        "kv_sort_bound_ms": bound_ms(16.0 * Q * L, 0)[0],
+        "scan_and_cut_bound_ms": bound_ms(12.0 * Q * L, 0)[0],
+    }
     log(f"merge query split (device ms a call): {json.dumps(out['merge_split'])}")
     log(f"merge query 1000x32x2033 beta=254: {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms; "
-        f"{len(merge_cases)} cases x 2 dtypes + {golden} golden bit-equal")
-    log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
+        f"{len(inputs)} cases, {n_checked} (case, dtype, regime) calls + {golden} golden x 2 regimes bit-equal")
     return out
+
+
+class MergeShapes:
+    """While active, records every ``(Q, k, T+1, β, dtype)`` that
+    ``merge_batched`` is called with on the card, and how often: each
+    module of the port that bound the wrapper by name gets a recording
+    stand-in, and the wrapper back on exit."""
+
+    def __init__(self):
+        self.seen: dict[tuple, int] = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import merge_cut
+
+        self.orig = orig = merge_cut.merge_batched
+
+        def record(bounds, sizes, beta, **kw):
+            if bounds.device.type == "cuda":
+                key = (*bounds.shape, int(beta), str(bounds.dtype).removeprefix("torch."))
+                self.seen[key] = self.seen.get(key, 0) + 1
+            return orig(bounds, sizes, beta, **kw)
+
+        self.patched = [
+            m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch") and getattr(m, "merge_batched", None) is orig
+        ]
+        for m in self.patched:
+            m.merge_batched = record
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.patched:
+            m.merge_batched = self.orig
+        return False
+
+
+def merge_shape_inputs(rng, Q: int, k: int, T1: int, dtype: str, dev):
+    """Seeded inputs of one merge shape, total mass below 2^24 a problem."""
+    import torch
+
+    Tn = T1 - 1
+    hi = max(Tn + 2, min(400_000, (1 << 24) // (k + 1)))
+    b, s = summary_inputs(rng, Q, k, Tn, hi, False, dev, T=Tn)
+    return (torch.round(b).to(torch.int32) if dtype == "int32" else b), s
+
+
+def merge_shape_times(dev, seen: dict, regimes: bool = True) -> list[dict]:
+    """Each merge shape the main path gave ``merge_batched``: seeded inputs
+    held bit-equal to the plain version, then 20 back-to-back calls timed
+    (``calls_breakdown``: device µs a call by item, wall µs) with their
+    launches a call and the call's byte bound, in each regime that holds
+    the shape (``regimes``
+    False: the wrapper's own choice only, with no ``regime`` argument)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(SEED + 16)
+    rows = []
+    for (Q, k, T1, beta, dtype), calls in sorted(seen.items()):
+        b, s = merge_shape_inputs(rng, Q, k, T1, dtype, dev)
+        want = ref.merge_ref(b, s, beta)
+        for regime in merge_regimes(k, T1) if regimes else [None]:
+            kw = {"regime": regime} if regime else {}
+            call = lambda: kernels.merge_batched(b, s, beta, **kw)
+            assert merge_bits_equal(call(), want), (Q, k, T1, beta, dtype, regime)
+            kernels.reset_launches()
+            row = {"Q": Q, "k": k, "T": T1 - 1, "beta": beta, "dtype": dtype, "calls_on_path": calls,
+                   "regime": regime or "default", "bound_us": merge_bound_ms(Q, k, T1, beta) * 1e3,
+                   **calls_breakdown(call, 20)}
+            got = kernels.reset_launches()
+            row["launches_per_call"] = {name: got[name] / 41 for name in ("merge_cut", "sort_kv")}  # 1 + 2 × 20
+            rows.append(row)
+            log("merge shape " + json.dumps(row))
+    return rows
 
 
 def calls_breakdown(fn, reps: int = 100) -> dict:
@@ -526,9 +699,10 @@ def merge_golden(dev) -> int:
             hs.append(build_exact(v, Tg, device="cpu"))
         b = torch.stack([h.boundaries for h in hs])[None]
         s = torch.stack([h.sizes for h in hs])[None]
-        bo, so = merge_batched(b.to(dev), s.to(dev), beta)
         rb, rs = ref.merge_ref(b, s, beta)
-        assert torch.equal(bo.cpu(), rb) and torch.equal(so.cpu(), rs), f"golden {seed}"
+        for regime in merge_regimes(k, Tg + 1):
+            bo, so = merge_batched(b.to(dev), s.to(dev), beta, regime=regime)
+            assert torch.equal(bo.cpu(), rb) and torch.equal(so.cpu(), rs), f"golden {seed} {regime}"
         hq = merge_histograms_sequential(hs, beta)
         np.testing.assert_allclose(bo[0].cpu().numpy(), hq.boundaries.numpy(), rtol=1e-6)
         np.testing.assert_allclose(so[0].cpu().numpy(), hq.sizes.numpy(), atol=1e-2)
@@ -577,7 +751,7 @@ def paper_config(dev) -> tuple[dict, dict]:
         assert np.all(np.isfinite(hg.boundaries)) and hg.boundaries.shape == (cfg.beta + 1,)
         n = sum(len(parts[p]) for p in range(lo, hi + 1))
         assert float(hg.sizes.astype(np.float64).sum()) == n
-    for name in ("tile_sort", "sort_kv", "merge_cut"):  # the store's kernels
+    for name in ("tile_sort", "merge_cut"):  # the store's kernels (its merges fit one block)
         assert launches[name] > 0, f"main path never launched {name}: {launches}"
     log(f"paper config: 31 partitions x 200000, 496 windows bit-equal to the CPU run; "
         f"ingest {t_ing:.3f} s, query_many {t_q:.3f} s; launches {launches}")
@@ -783,8 +957,8 @@ def log_analytics(dev) -> tuple[dict, dict]:
     summ, ans, day_true, win_true = run()
     wall = time.perf_counter() - t0
     launches = kernels.reset_launches()
-    for name, c in launches.items():
-        assert c > 0, f"log analytics path never launched {name}: {launches}"
+    for name in PATH_KERNELS:
+        assert launches[name] > 0, f"log analytics path never launched {name}: {launches}"
     prof = device_breakdown(run)
     day_eps = {}
     worst_day = 0.0
@@ -882,8 +1056,8 @@ def registry(dev, tenants: int = 256, days: int = 31, n: int = 65_536) -> tuple[
         true[i] = (kernels.bucket_sizes(vals, torch.from_numpy(ans[i][0].boundaries).to(dev)), vals)
     sync(dev)
     launches = kernels.reset_launches()
-    for kname, c in launches.items():
-        assert c > 0, f"registry path never launched {kname}: {launches}"
+    for kname in PATH_KERNELS:
+        assert launches[kname] > 0, f"registry path never launched {kname}: {launches}"
     worst = 0.0
     for i, (sizes, vals) in true.items():
         (h, eps), N = ans[i], vals.numel()
@@ -929,6 +1103,19 @@ def registry(dev, tenants: int = 256, days: int = 31, n: int = 65_536) -> tuple[
         f"eps (worst {worst:.4f}); launches {launches}")
     log(f"registry traced: {json.dumps(prof)}")
     return launches, out
+
+
+MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
+
+
+def save_merge_shapes(dev, seen: dict) -> list[dict]:
+    """Write the main path's merge shapes to ``build/merge_shapes.json``
+    (``scripts/merge_sweep.py`` reads them) and time each."""
+    os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
+    with open(MERGE_SHAPES_FILE, "w") as f:
+        json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
+    log(f"merge shapes of phases 3-6: {len(seen)} distinct, {sum(seen.values())} calls")
+    return merge_shape_times(dev, seen)
 
 
 def ptxas_summary(text: str) -> list[str]:
@@ -1000,10 +1187,12 @@ def main() -> int:
     meas = phase("2 kernels vs plain", lambda: check_kernels(dev, rng))
     sorts = phase("2b sort sweep", lambda: sort_sweep(dev))
     counts = phase("2c bucket count shapes", lambda: bucket_count_shapes(dev))
-    main_path = phase("3 paper config", lambda: paper_config(dev))
-    big = phase("4 scale", lambda: scale(dev))
-    logs = phase("5 log analytics", lambda: log_analytics(dev))
-    tenants = phase("6 registry", lambda: registry(dev))
+    with MergeShapes() as shapes:
+        main_path = phase("3 paper config", lambda: paper_config(dev))
+        big = phase("4 scale", lambda: scale(dev))
+        logs = phase("5 log analytics", lambda: log_analytics(dev))
+        tenants = phase("6 registry", lambda: registry(dev))
+    merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
         return 1
@@ -1011,6 +1200,9 @@ def main() -> int:
     meas["bucket_count"] = big.pop("bucket_count")
     per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
+    if not all(total.values()):  # every kernel, the kv sort too, on the main paths
+        log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
+        return 1
     replaces = {
         "tile_sort": ("src/repro_torch/kernels/csrc/row_sort.cu", "src/repro/kernels/tile_sort.py:119"),
         "sort_kv": ("src/repro_torch/kernels/csrc/kv_sort.cu", "src/repro/kernels/tile_sort.py:125"),
@@ -1026,7 +1218,7 @@ def main() -> int:
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
                     "log_analytics": logs[1], "registry": tenants[1], "sorts": sorts,
-                    "bucket_count_shapes": counts}))
+                    "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

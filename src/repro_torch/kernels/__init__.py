@@ -3,8 +3,10 @@
 - :func:`sort_rows` / :func:`summarize_rows` — the Summarizer's row sort
   (``csrc/row_sort.cu``);
 - :func:`sort_kv` — the stable key/value sort (``csrc/kv_sort.cu``), whose
-  first stage :func:`argsort_pairs` also starts every merge;
-- :func:`merge_batched` — the batched merge (``csrc/merge_cut.cu``);
+  pair form :func:`argsort_pairs` also starts every long merge;
+- :func:`merge_batched` — the batched merge (``csrc/merge_cut.cu``): one
+  launch for a problem that fits one block, else the kv sort and one
+  scan-and-cut launch;
 - :func:`cumulative_counts` — the bucket count (``csrc/bucket_count.cu``).
 
 The public entry points of :mod:`.ops` sit on them: :func:`bucket_sizes`,

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "hk_row_sort": [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 3,
     "hk_row_gather": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR],
     "hk_kv_sort": [_PTR] * 4 + [_INT] * 6 + [_PTR] * 6,
-    "hk_merge_cut": [_PTR, _PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR, _PTR, _PTR],
+    "hk_merge_cut": [_PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR, _PTR, _PTR],
     "hk_bucket_count": [_PTR, _I64, _PTR] + [_INT] * 3 + [_PTR, _PTR],
 }
 

@@ -283,10 +283,17 @@ constexpr size_t resident_smem() {
                              256 + 256 + 8 + W / 8 * 256 + W * 256);
 }
 
-// One block sorts one row of a.width <= W·32·ITEMS keys in shared memory.
+// The four passes of a resident block over the n keys it holds in k (and
+// their payload in ix), item c of lane l in warp w at tile position
+// w·32·ITEMS + c·32 + l.  Leaves the keys sorted in sm[0, n) and, KV, the
+// payload in sm[C, C + n), C = W·32·ITEMS, and ends with a barrier; the
+// rest of the block's resident_smem is free again.  The sort kernel and
+// the merge's resident kernel (merge_cut.cu) both run it.
 template <int W, int ITEMS, bool KV>
-__global__ void __launch_bounds__(W * 32) resident_kernel(SortArgs a) {
-  extern __shared__ __align__(16) uint32_t sm[];
+__device__ __forceinline__ void resident_passes(uint32_t (&k)[ITEMS],
+                                                uint32_t (&ix)[ITEMS],
+                                                uint32_t n, int codec,
+                                                uint32_t* sm) {
   constexpr uint32_t C = W * 32 * ITEMS;
   uint32_t* skey = sm;
   uint32_t* sidx = sm + C;  // KV only
@@ -296,21 +303,7 @@ __global__ void __launch_bounds__(W * 32) resident_kernel(SortArgs a) {
   uint32_t* wsum = start + 256;
   uint32_t* gsum = wsum + 8;
   uint32_t* mbins = gsum + W / 8 * 256;
-  const uint32_t row = blockIdx.x, n = a.width;
   const uint32_t first = (threadIdx.x >> 5) * 32 * ITEMS + (threadIdx.x & 31);
-  const int codec = a.mode == kGather ? a.dtype : -1;
-  const uint32_t* src = a.src + (size_t)row * n;
-  uint32_t k[ITEMS], ix[ITEMS];
-#pragma unroll
-  for (int c = 0; c < ITEMS; ++c) {
-    const uint32_t pos = first + c * 32;
-    k[c] = 0xFFFFFFFFu;
-    ix[c] = pos;
-    if (pos < n) {
-      k[c] = codec < 0 ? enc_key(a.dtype, src[pos]) : src[pos];
-      if (KV && codec >= 0) ix[c] = a.vals[(size_t)row * n + pos];
-    }
-  }
   for (int p = 0; p < 4; ++p) {
     if (p > 0) {
 #pragma unroll
@@ -329,6 +322,31 @@ __global__ void __launch_bounds__(W * 32) resident_kernel(SortArgs a) {
                               skey, sidx);
     __syncthreads();
   }
+}
+
+// One block sorts one row of a.width <= W·32·ITEMS keys in shared memory.
+template <int W, int ITEMS, bool KV>
+__global__ void __launch_bounds__(W * 32) resident_kernel(SortArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr uint32_t C = W * 32 * ITEMS;
+  const uint32_t* skey = sm;
+  const uint32_t* sidx = sm + C;  // KV only
+  const uint32_t row = blockIdx.x, n = a.width;
+  const uint32_t first = (threadIdx.x >> 5) * 32 * ITEMS + (threadIdx.x & 31);
+  const int codec = a.mode == kGather ? a.dtype : -1;
+  const uint32_t* src = a.src + (size_t)row * n;
+  uint32_t k[ITEMS], ix[ITEMS];
+#pragma unroll
+  for (int c = 0; c < ITEMS; ++c) {
+    const uint32_t pos = first + c * 32;
+    k[c] = 0xFFFFFFFFu;
+    ix[c] = pos;
+    if (pos < n) {
+      k[c] = codec < 0 ? enc_key(a.dtype, src[pos]) : src[pos];
+      if (KV && codec >= 0) ix[c] = a.vals[(size_t)row * n + pos];
+    }
+  }
+  resident_passes<W, ITEMS, KV>(k, ix, n, codec, sm);
   for (uint32_t j = threadIdx.x; j < n; j += W * 32)
     write_out(a, row, j, skey[j], KV ? sidx[j] : 0u);
   write_pads(a, row);

@@ -45,16 +45,63 @@ def test_cuda_kv_sort_exact_stable_order(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("beta", [1, 7, 64])
-def test_cuda_merge_bit_equal(cuda, beta):
+def merge_cases(beta: int):
+    """(name, bounds, sizes) on the CPU: 16 problems of 5 summaries with
+    ties; the resident capacity's edges k(T+1) = 16,384 and 16,385; ±0,
+    ±inf and NaN boundaries; n = 0 problems beside others; and β above
+    k(T+1)."""
     rng = np.random.default_rng(beta)
-    b = torch.sort(torch.from_numpy(rng.integers(0, 50, size=(16, 5, 65)).astype(np.float32)), -1).values
-    s = torch.from_numpy(np.diff(ref.masked_cuts(rng.integers(64, 5000, size=80), 64), axis=-1)
-                         .astype(np.float32).reshape(16, 5, 64))
-    want = ref.merge_ref(b, s, beta)
-    got = kernels.merge_batched(b.to(cuda), s.to(cuda), beta)
-    for a, w in zip(got, want):
-        assert torch.equal(a.cpu(), w)
+
+    def summaries(Q, k, T, hi=5000):
+        b = torch.sort(torch.from_numpy(rng.integers(0, 50, size=(Q, k, T + 1)).astype(np.float32)), -1).values
+        n = rng.integers(T, hi, size=Q * k)
+        s = torch.from_numpy(np.diff(ref.masked_cuts(n, T), axis=-1).astype(np.float32).reshape(Q, k, T))
+        return b, s
+
+    out = [("ties", *summaries(16, 5, 64))]
+    out.append(("k(T+1) = 16,384", *summaries(3, 64, 255)))
+    out.append(("k(T+1) = 16,385", *summaries(3, 5, 3276)))
+    b, s = summaries(6, 4, 20)
+    b[0, 0, -1], b[1, 1, 0], b[2, 2, 5:] = float("inf"), -float("inf"), float("nan")
+    b[3, 0, :3] = torch.tensor([-0.0, 0.0, -0.0])
+    s[4] = 0.0  # an empty query row packs to zero mass
+    out.append(("non-finite, n = 0", b, s))
+    out.append(("beta > k(T+1)", *summaries(4, 2, 3, hi=10)))
+    return out
+
+
+@pytest.mark.parametrize("regime", ["resident", "long"])
+@pytest.mark.parametrize("beta", [1, 7, 64])
+def test_cuda_merge_bit_equal(cuda, beta, regime):
+    from repro_torch.kernels import merge_cut
+
+    for name, b, s in merge_cases(beta):
+        Q, k, T1 = b.shape
+        if regime == "resident" and not merge_cut.plan(k, T1 - 1):
+            continue  # past the resident capacity: the long regime only
+        finite = bool(torch.isfinite(b).all())
+        for bd in [b] + ([b.to(torch.int32)] if finite else []):
+            want = ref.merge_ref(bd, s, beta)
+            kernels.reset_launches()
+            got = kernels.merge_batched(bd.to(cuda), s.to(cuda), beta, regime=regime)
+            assert kernels.LAUNCHES["merge_cut"] == 1
+            assert kernels.LAUNCHES["sort_kv"] == (regime == "long")
+            for a, w in zip(got, want):
+                assert a.dtype == w.dtype, name
+                assert torch.equal(a.cpu().view(torch.int32), w.view(torch.int32)), (name, bd.dtype)
+
+
+def test_cuda_resident_merge_stacks_is_one_launch(cuda):
+    from repro_torch.core import merge_stacks
+
+    rng = np.random.default_rng(11)
+    b = np.sort(rng.normal(size=(9, 2, 33)), axis=-1).astype(np.float32)
+    s = np.full((9, 2, 32), 3.0, np.float32)
+    kernels.reset_launches()
+    bo, so = merge_stacks(b, s, 32)
+    assert kernels.LAUNCHES["merge_cut"] == 1 and kernels.LAUNCHES["sort_kv"] == 0
+    want = ref.merge_ref(torch.from_numpy(b), torch.from_numpy(s), 32)
+    assert torch.equal(bo.cpu(), want[0]) and torch.equal(so.cpu(), want[1])
 
 
 @pytest.mark.parametrize("T_node", [None, "geometric"])

@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import Histogram, build_exact
+from repro.core import Histogram, build_exact, merge
 from repro.kernels import merge_pallas, sort_kv_pallas, sort_tiles_pallas
 from repro_torch import kernels
+from repro_torch.core import Histogram as TorchHistogram
 from repro_torch.kernels import ref
 
 RNG_SEED = 42
@@ -83,6 +84,46 @@ def test_merge_ref_all_tied_boundaries():
     assert float(rs.sum()) == 80.0
 
 
+def test_merge_keeps_an_inf_max_that_merge_pallas_zeroes():
+    # merge_cut_kernel maps non-finite boundaries to 0 before its one-hot
+    # gathers (repro/kernels/merge_cut.py:63-73); the port gathers the bits
+    b = np.array([[0, 1, 2, np.inf], [0.5, 1.5, 2.5, 3.5]], np.float32)
+    s = np.ones((2, 3), np.float32)
+    bo, _ = merge_pallas(jnp.asarray(b), jnp.asarray(s), 3)
+    np.testing.assert_array_equal(np.asarray(bo), [0, 1, 2, 0])
+    oracle = merge(Histogram(jnp.asarray(b), jnp.asarray(s)), 3)
+    got = kernels.merge_histograms(TorchHistogram(torch.from_numpy(b), torch.from_numpy(s)), 3, device="cpu")
+    np.testing.assert_array_equal(got.boundaries.numpy(), [0, 1, 2, np.inf])
+    np.testing.assert_array_equal(got.boundaries.numpy(), np.asarray(oracle.boundaries))
+    np.testing.assert_array_equal(got.sizes.numpy(), np.asarray(oracle.sizes))
+
+
+def test_sort_rows_keeps_numbers_where_bitonic_spreads_nan():
+    # _bitonic's jnp.minimum/maximum turn a tile holding NaN into all NaN
+    rng = np.random.default_rng(RNG_SEED)
+    x = rng.normal(size=(1, 256)).astype(np.float32)
+    x[0, [3, 100]] = np.nan
+    assert np.isnan(np.asarray(sort_tiles_pallas(jnp.asarray(x)))).all()
+    got = kernels.sort_rows(torch.from_numpy(x)).numpy()
+    assert np.isnan(got[0, 254:]).all() and not np.isnan(got[0, :254]).any()
+    np.testing.assert_array_equal(got[0, :254], np.sort(x[0][~np.isnan(x[0])]))
+    assert torch.equal(ref.sort_rows_ref(torch.from_numpy(x))[:, :254], torch.from_numpy(got[:, :254]))
+
+
+def test_sort_kv_sorts_nan_keys_that_bitonic_kv_leaves_unsorted():
+    # _bitonic_kv swaps both lanes when a key is NaN (neither lex_le nor lex_ge)
+    rng = np.random.default_rng(RNG_SEED)
+    keys = rng.normal(size=(1, 256)).astype(np.float32)
+    keys[0, [3, 100]] = np.nan
+    vals = np.arange(256, dtype=np.float32)[None]
+    pk = np.asarray(sort_kv_pallas(jnp.asarray(keys), jnp.asarray(vals))[0])[0]
+    numbers = pk[~np.isnan(pk)]
+    assert not np.isnan(pk[254:]).all() and np.any(np.diff(numbers) < 0)
+    tk, tv = kernels.sort_kv(torch.from_numpy(keys), torch.from_numpy(vals))
+    assert np.isnan(tk[0, 254:].numpy()).all() and not np.isnan(tk[0, :254].numpy()).any()
+    np.testing.assert_array_equal(tv[0].numpy(), np.argsort(keys[0], kind="stable").astype(np.float32))
+
+
 def test_summarize_rows_ref_masked_cuts():
     x = torch.tensor([[5.0, 1.0, 3.0, float("inf")], [2.0, 2.0, 9.0, 0.0]])
     got = ref.summarize_rows_ref(x, [3, 4], 2)
@@ -121,6 +162,10 @@ def test_wrappers_reject_bad_arguments():
         kernels.merge_batched(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 5)), 2)
     with pytest.raises(ValueError):
         kernels.merge_batched(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 4)), 0)
+    with pytest.raises(ValueError):  # no such regime
+        kernels.merge_batched(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 4)), 2, regime="onesweep")
+    with pytest.raises(ValueError):  # 5 × 3277 boundaries do not fit one block
+        kernels.merge_batched(torch.zeros((1, 5, 3277)), torch.zeros((1, 5, 3276)), 2, regime="resident")
     with pytest.raises(ValueError):
         kernels.sort_kv(torch.zeros((2, 4)), torch.zeros((2, 5)))
     with pytest.raises(ValueError):  # CUDA-only stage, given a CPU tensor
