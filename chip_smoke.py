@@ -21,6 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    2c. the bucket count at the main path's three shapes (a day, a window,
    a registry window): device µs, wall µs and launches a call over 100
    back-to-back calls;
+   and the tile Summarizer over streams holding NaN, ±inf and ±0,
+   bit-equal to its CPU run;
 3. the main path at the paper's configuration: ``HistogramStore`` with
    T=2032 on the card, ``ingest_many`` of 31 × 200,000 seeded Gumbel values,
    ``query_many`` of all 496 windows at β=254 — bit-equal to the same run on
@@ -40,20 +42,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    dashboard refresh of 256 windows in one merge with zero host row
    copies, 1,000 random windows, the first 8 tenants bit-equal to a CPU
    registry, 32 windows' true occupancy within ε;
+8. the serving plane (``repro_torch.serve.HistogramService``; it runs
+   before phase 7, so that its merge shapes join phase 7's record): 64
+   metrics × 31 daily windows × 65,536 lognormal values recorded by a
+   primary (one metric through ``record``, the rest through
+   ``record_async`` + ``flush``) that ships its WAL to a replica-role
+   service; the replica's ``sync``; 1,000 random windows on both,
+   bit-equal, zero drift, none degraded; 10,000 subscriptions over 256
+   windows and two ticks, each one merge dispatch (one ``merge_cut``
+   launch) whose every push is bit-equal to a cold pull; a
+   ``TelemetryHub`` dashboard and a ``StragglerDetector`` that flags the
+   slow host of 8; ``close()`` without a checkpoint and recovery from the
+   WAL, bit-equal; a checkpoint and ``promote`` of the replica fencing the
+   old primary; then the same sequence on the CPU for 4 metrics,
+   bit-equal to the card's answers;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6, in each regime that holds it: device µs a call by item,
-   wall µs and launches a call (the shapes also go to
+   phases 3–6 and 8, in each regime that holds it: device µs a call by
+   item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
-8. report: the kernels JSON line, throughput/latency, the card.
+then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5 and 6 are the main paths: each is run with the launch counts
-set to 0 just before it and read just after, and fails unless every kernel
-of its path was launched; the run fails unless each kernel was launched on
-the three together (the kv sort only sorts merges too long for one block:
-the log analytics path's T=2048 window merges).
+Phases 3, 5, 6 and 8 are the main paths: each is run with the launch
+counts set to 0 just before it and read just after, and fails unless every
+kernel of its path was launched; the run fails unless each kernel was
+launched on the four together (the kv sort only sorts merges too long for
+one block: the log analytics path's T=2048 window merges).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
-Writes nothing outside ``build/`` (the kernel build, the merge shapes).
+Writes nothing outside ``build/`` (the kernel build, the merge shapes, and
+phase 8's service directories, removed at its end).
 """
 from __future__ import annotations
 
@@ -324,11 +341,48 @@ def check_kernels(dev, rng) -> dict:
 
     out.update(check_merge(dev, rng))
     log(f"bucket count: {check_bucket_count(dev)} cases bit-equal to the plain version")
+    log(f"summarize_tiles: {check_tiles_nonfinite(dev)} streams with NaN/±inf/±0 bit-equal to the CPU run")
     return out
 
 
+def check_tiles_nonfinite(dev) -> int:
+    """The tile Summarizer (``ops.summarize_tiles``: one row-sort and one
+    merge launch) over streams holding NaN, ±inf and ±0, on the card and
+    on the CPU, from a sprinkle to a stream of nothing else: sizes
+    bit-equal, boundaries equal in value with one NaN mask (NaN sort last
+    as one key, so a tile holding NaN ends in NaN boundaries on both
+    sides).  Their bits differ only where the row sort writes its one NaN
+    (0x7FFFFFFF) for any NaN and +0 for -0 (``tile_sort.sort_rows``); the
+    plain version keeps the input's bits.  Returns the number of
+    streams."""
+    import torch
+
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(SEED + 17)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+    cases = 0
+    for n, share in ((67_584, 0.001), (67_584, 0.05), (3 * 4096 + 517, 0.5), (2 * 4096, 1.0), (1, 1.0)):
+        x = rng.lognormal(-1.8, 0.55, size=n).astype(np.float32)
+        at = rng.random(n) < share
+        x[at] = rng.choice(special, int(at.sum()))
+        kernels.reset_launches()
+        hg = kernels.summarize_tiles(torch.from_numpy(x).to(dev), tile_len=4096, T_tile=512, T_out=2048)
+        got = kernels.reset_launches()
+        assert got["tile_sort"] == 1 and got["merge_cut"] == 1, (n, share, got)
+        hc = kernels.summarize_tiles(x, tile_len=4096, T_tile=512, T_out=2048, device="cpu")
+        assert torch.equal(hg.sizes.cpu().view(torch.int32), hc.sizes.view(torch.int32)), (n, share)
+        a, b = hg.boundaries.cpu(), hc.boundaries
+        assert a.dtype == b.dtype and same_sorted(a, b), (n, share)
+        differ = a.view(torch.int32) != b.view(torch.int32)
+        canon = (torch.isnan(a) & torch.isnan(b)) | ((a == 0) & (b == 0))
+        assert bool(canon[differ].all()), (n, share)
+        cases += 1
+    return cases
+
+
 # the kernels every path with a bucket count launches; the kv sort runs only
-# in a merge too long for one block, so it is held to the three main paths
+# in a merge too long for one block, so it is held to the four main paths
 # together (main)
 PATH_KERNELS = ("tile_sort", "merge_cut", "bucket_count")
 # the merge's own kernels in a trace (csrc/merge_cut.cu)
@@ -1105,6 +1159,298 @@ def registry(dev, tenants: int = 256, days: int = 31, n: int = 65_536) -> tuple[
     return launches, out
 
 
+# ----------------------------------------------------------------- phase 8
+
+SVC_T, SVC_BETA = 256, 64
+
+
+def same_answer(a, b) -> bool:
+    """Bit-equal histograms (or both empty) and equal ε."""
+    (ha, ea), (hb, eb) = a, b
+    if ha is None or hb is None:
+        return ha is None and hb is None and ea == eb
+    return (ha.boundaries.dtype == hb.boundaries.dtype and np.array_equal(ha.boundaries, hb.boundaries)
+            and np.array_equal(ha.sizes, hb.sizes) and ea == eb)
+
+
+def service_sequence(dev, names, data, root, wins, panels, n_subs: int, traced: bool = False) -> dict:
+    """The serving plane's sequence on ``dev``: a ``HistogramService``
+    primary shipping to a replica-role service, each metric of ``names``
+    recording ``data[i, d]`` (windows 0..days-1; the last two windows of
+    ``data`` are the two ticks'), the first metric through ``record``, the
+    rest through ``record_async`` + ``flush``; the replica's ``sync`` and
+    both services' ``query_many`` of ``wins``; ``n_subs`` subscriptions
+    over ``panels`` and two ticks, each a new window recorded into every
+    metric and pushed in ONE evaluation pass (the batch is recorded with
+    the plane's stale-listener hook lifted, then one ``mark_stale`` of all
+    metrics); a ``TelemetryHub`` dashboard of ``panels`` and a
+    ``StragglerDetector`` over 8 hosts; then ``close()`` of the primary
+    without a checkpoint, recovery from its WAL, a checkpoint, and
+    ``promote`` of the replica fencing the recovered primary.  Holds every
+    step to its contract and returns the answers, pushes, times and
+    counts, with where each record path's time went (the WAL's fsync
+    clock, and clocks around the shipper and the pool worker's apply;
+    ``traced``: plus ``torch.profiler`` breakdowns of the 1,000-window
+    query, the second tick's records and its push)."""
+    from repro_torch import kernels
+    from repro_torch.core import PrimaryFenced, TelemetryHub
+    from repro_torch.core.telemetry import StragglerDetector
+    from repro_torch.serve import HistogramService
+
+    days, n = data.shape[1] - 2, data.shape[2]
+    on_card = dev.type == "cuda"
+    kw = dict(num_buckets=SVC_T, shared_arena=True, device=dev)
+    pdir, sdir = os.path.join(root, "primary"), os.path.join(root, "standby")
+    out, t = {"counts": {}, "traced": {}}, {}
+
+    def clock(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    svc = HistogramService(pdir, replicate_to=[sdir], **kw)
+    rep = HistogramService(sdir, role="replica", **kw)
+    # where a record's time goes: the WAL's own fsync clock, and clocks
+    # around the shipper (both ack paths call it) and the pool worker's
+    # apply (summarize + pull-up; it overlaps the submits)
+    acct = {"ship_s": 0.0, "worker_apply_s": 0.0}
+
+    def clocked(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acct[key] += time.perf_counter() - t0
+        return run
+
+    pool = svc.registry._pool
+    svc.replicator.ship = pool.on_durable = clocked("ship_s", svc.replicator.ship)
+    pool.apply_batch = clocked("worker_apply_s", pool.apply_batch)
+
+    def breakdown(fn):
+        before = dict(acct, fsync_s=svc.wal_stats()["fsync_seconds_total"], batches=pool.batches)
+        _, wall = clock(fn)
+        after = dict(acct, fsync_s=svc.wal_stats()["fsync_seconds_total"], batches=pool.batches)
+        return wall, {"wall_s": wall, **{k: after[k] - before[k] for k in after}}
+
+    t["record_sync_s"], sync_parts = breakdown(lambda: [svc.record(names[0], d, data[0, d]) for d in range(days)])
+
+    def record_async():
+        for i in range(1, len(names)):
+            for d in range(days):
+                svc.record_async(names[i], d, data[i, d])
+        svc.flush()
+
+    t["record_async_s"], async_parts = breakdown(record_async)
+    out["record_breakdown"] = {"sync": sync_parts, "async": async_parts}
+    applied, t["sync_s"] = clock(rep.sync)
+    assert applied == len(names) * days, (applied, len(names) * days)
+    drift = rep.follower.drift_by_tenant()
+    assert drift == {m: 0 for m in names}, drift
+    prim, t["query_many_primary_s"] = clock(lambda: svc.query_many(wins, SVC_BETA))
+    repl, t["query_many_replica_s"] = clock(lambda: rep.query_many(wins, SVC_BETA))
+    for q, a, b in zip(wins, prim, repl):
+        assert not getattr(a, "degraded", False) and not b.degraded, q
+        assert a[0] is not None and same_answer(a, b), q
+        assert a[0].boundaries.shape == (SVC_BETA + 1,) and np.all(np.isfinite(a[0].boundaries)), q
+        assert float(a[0].sizes.astype(np.float64).sum()) == (q[2] - q[1] + 1) * n, q
+    out["answers"] = dict(zip(wins, prim))
+    if traced:
+        out["traced"]["query_many"] = device_breakdown(lambda: svc.query_many(wins, SVC_BETA + 1))
+
+    # -- standing queries: n_subs subscriptions over the panels, two ticks
+    reg, plane = svc.registry, svc.subscriptions
+    subs = [svc.subscribe(*panels[i % len(panels)], SVC_BETA) for i in range(n_subs)]
+    d0 = reg.merge_dispatches
+    plane.flush()  # initial answers: one pass
+    assert reg.merge_dispatches - d0 == 1 and all(len(s.drain()) == 1 for s in subs)
+
+    def record_tick(day: int) -> None:
+        reg._stale_listeners.remove(plane)  # the batch notifies once, below
+        try:
+            for i, m in enumerate(names):
+                svc.record_async(m, day, data[i, day])
+            svc.flush()
+        finally:
+            reg._stale_listeners.append(plane)
+
+    def push():
+        plane.mark_stale(names)
+        plane.flush()
+
+    def check_pushes(tag: str) -> list[float]:
+        for m in names:
+            reg[m]._tree._cache.clear()
+        cold = dict(zip(panels, svc.query_many(panels, SVC_BETA)))  # cold pulls
+        lags, last = [], {}
+        for sub in subs:
+            [up] = sub.drain()
+            key = (up.tenant, up.lo, up.hi)
+            assert not up.degraded and up.version == reg[up.tenant].version, (tag, key)
+            assert same_answer((up.hist, up.eps), cold[key]), (tag, key)
+            assert isinstance(up.hist.boundaries, np.ndarray), (tag, key)
+            lags.append(up.lag_seconds)
+            last[key] = (up.hist, up.eps)
+        out["pushes"] = last
+        return lags
+
+    for tick, day in enumerate((days, days + 1)):
+        if traced and tick == 1:
+            out["traced"]["tick_records"] = device_breakdown(lambda: record_tick(day))
+        else:
+            record_tick(day)
+        before, d0, b0 = dict(kernels.LAUNCHES), reg.merge_dispatches, plane.eval_batches
+        if traced and tick == 1:
+            out["traced"]["tick"] = device_breakdown(push)
+            el = out["traced"]["tick"]["wall_ms"] / 1e3
+        else:
+            _, el = clock(push)
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        assert reg.merge_dispatches - d0 == 1 and plane.eval_batches - b0 == 1, (tick, reg.merge_dispatches - d0)
+        if on_card:
+            assert got["merge_cut"] == 1 and got["tile_sort"] == 0 and got["sort_kv"] == 0, (tick, got)
+        lags = check_pushes(f"tick {tick}")
+        if tick == 0:
+            t["tick_mark_to_last_delivery_s"] = el
+            out["push_lag_s"] = {"p50": float(np.percentile(lags, 50)), "p99": float(np.percentile(lags, 99)),
+                                 "max": float(max(lags))}
+            out["counts"]["tick_launches"] = got
+    st = plane.stats()
+    out["counts"].update(subscriptions=st["subscriptions"], windows=st["windows"],
+                         updates_delivered=st["updates_delivered"], dedup_saved=st["dedup_saved"])
+
+    # -- a dashboard of the same panels through the same registry, and stragglers
+    hub = TelemetryHub(T=SVC_T, registry=reg)
+    d0 = reg.merge_dispatches
+    dash = hub.dashboard(panels, beta=SVC_BETA)  # the tick's evaluation cached these
+    assert reg.merge_dispatches == d0
+    assert all(same_answer(a, out["pushes"][p]) for p, a in zip(panels, dash))
+    dash = hub.dashboard(panels, beta=SVC_BETA // 2)
+    assert reg.merge_dispatches - d0 == 1
+    for (m, lo, hi), (h, _) in zip(panels, dash):
+        assert float(h.sizes.astype(np.float64).sum()) == (min(hi, days + 1) - lo + 1) * n, (m, lo, hi)
+    out["dashboard"] = dict(zip(panels, dash))
+    det = StragglerDetector(window=64, T=64, device=dev)
+    srng = np.random.default_rng(SEED + 8)
+    for _ in range(64):
+        for host in range(8):
+            det.record(host, (0.10 + 0.005 * srng.standard_normal()) * (3.0 if host == 5 else 1.0))
+    out["straggler"] = det.flag()
+    assert out["straggler"][0] == [5] and 0.1 < out["straggler"][1] < 0.35, out["straggler"]
+
+    # -- crash, recovery and failover
+    before = svc.query_many(wins + panels, SVC_BETA)
+    shipped = svc.replicator.bytes_shipped
+    out["counts"]["wal_bytes"] = svc.wal_stats()["bytes_written"]
+    svc.close()  # no checkpoint: the WAL holds everything
+    svc.registry._wal.close()
+    svc2, t["recover_s"] = clock(lambda: HistogramService(pdir, replicate_to=[sdir], **kw))
+    assert svc2.recovery["replayed"] == len(names) * (days + 2), svc2.recovery
+    after = svc2.query_many(wins + panels, SVC_BETA)
+    assert all(same_answer(a, b) and not getattr(b, "degraded", False) for a, b in zip(before, after))
+    _, t["checkpoint_s"] = clock(svc2.checkpoint)
+    rep.sync()
+    _, t["promote_s"] = clock(lambda: rep.promote(fence=svc2.replicator.fence))
+    promoted = rep.query_many(wins + panels, SVC_BETA)
+    assert all(same_answer(a, b) and not getattr(b, "degraded", False) for a, b in zip(before, promoted))
+    rep.record(names[0], days + 2, data[0, 0])  # the promoted service takes writes
+    try:
+        svc2.record(names[0], days + 3, data[0, 1])
+        raise AssertionError("the deposed primary took an append")
+    except PrimaryFenced:
+        pass
+    out["recovered"] = dict(zip(wins + panels, after))
+    out["counts"]["shipped_bytes"] = shipped + svc2.replicator.bytes_shipped
+    out["counts"]["recovery"] = svc2.recovery
+    for s in (rep, svc2):
+        s.close()
+    svc2.registry._wal.close()
+    rep.registry._wal.close()
+    values = len(names) * days * n
+    out["times"] = t
+    out["record_sync_values_per_s"] = days * n / t["record_sync_s"]
+    out["record_async_values_per_s"] = (values - days * n) / t["record_async_s"]
+    return out
+
+
+def service(dev, metrics: int = 64, days: int = 31, n: int = 65_536, n_subs: int = 10_000,
+            cpu_metrics: int = 4) -> tuple[dict, dict]:
+    """The serving plane at a metrics sidecar's state size: 64 metrics ×
+    31 daily windows × 65,536 lognormal values through ``HistogramService``
+    (``service_sequence``), 1,000 random windows, 10,000 subscriptions over
+    256 distinct windows (4 a metric: all time, the last 8 days, one random
+    span, one day); then the same sequence on the CPU for the first
+    ``cpu_metrics`` metrics, its answers, pushes, dashboard, recovered
+    answers and straggler cut held bit-equal to the card's.  Returns the
+    launch counts of the card's sequence and its measurements."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(SEED + 7)
+    data = rng.standard_normal(size=(metrics, days + 2, n), dtype=np.float32)
+    data *= 0.55
+    data -= 1.8
+    np.exp(data, out=data)  # lognormal latencies
+    names = [f"svc{m:02d}.latency_ms" for m in range(metrics)]
+    pick = rng.integers(0, metrics, size=1000)
+    lo = rng.integers(0, days, size=1000)
+    hi = np.minimum(days - 1, lo + rng.integers(0, days, size=1000))
+    wins = [(names[m], int(a), int(b)) for m, a, b in zip(pick, lo, hi)]
+    panels = []
+    for m in names:
+        mine = {(m, 0, days + 1), (m, days - 7, days + 1)}
+        while len(mine) < 4:
+            a = int(rng.integers(0, days))
+            mine.add((m, a, a if len(mine) == 3 else int(rng.integers(a, days))))
+        panels += sorted(mine)
+    assert len(set(panels)) == 4 * metrics
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="service-", dir=os.path.join(ROOT, "build"))
+    try:
+        kernels.reset_launches()
+        card = service_sequence(dev, names, data, os.path.join(root, "card"), wins, panels, n_subs, traced=True)
+        launches = kernels.reset_launches()
+        for name in ("tile_sort", "merge_cut"):
+            assert launches[name] > 0, f"service path never launched {name}: {launches}"
+        first = set(names[:cpu_metrics])
+        cpu = service_sequence(
+            torch.device("cpu"), names[:cpu_metrics], data[:cpu_metrics], os.path.join(root, "cpu"),
+            [q for q in wins if q[0] in first], [p for p in panels if p[0] in first], 4 * cpu_metrics,
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checked = 0
+    for part in ("answers", "pushes", "dashboard", "recovered"):
+        for q, a in cpu[part].items():
+            assert same_answer(card[part][q], a), (part, q)
+            checked += 1
+    assert card["straggler"][0] == cpu["straggler"][0] and card["straggler"][1] == cpu["straggler"][1]
+    card["cpu_checked_answers"] = checked
+    res = {k: v for k, v in card.items() if k not in ("answers", "pushes", "dashboard", "recovered")}
+    res.update(metrics=metrics, days=days, values=metrics * days * n, subscriptions=n_subs,
+               straggler=[card["straggler"][0], card["straggler"][1]])
+    t = card["times"]
+    log(f"service: {metrics} metrics x {days} days x {n} values; record sync {res['record_sync_values_per_s']:.4g} "
+        f"values/s, async+flush {res['record_async_values_per_s']:.4g} values/s; replica sync {t['sync_s']:.3f} s; "
+        f"query_many 1000 primary {t['query_many_primary_s']:.4f} s, replica {t['query_many_replica_s']:.4f} s "
+        f"(bit-equal, zero drift); {n_subs} subscriptions over {len(panels)} windows, tick: 1 merge dispatch, "
+        f"launches {card['counts']['tick_launches']}, mark to last delivery {t['tick_mark_to_last_delivery_s']:.4f} s, "
+        f"push lag p50 {card['push_lag_s']['p50']:.4f} s p99 {card['push_lag_s']['p99']:.4f} s; straggler "
+        f"{card['straggler'][0]}; recovery {t['recover_s']:.3f} s, promote {t['promote_s']:.3f} s; WAL "
+        f"{card['counts']['wal_bytes']} bytes, shipped {card['counts']['shipped_bytes']} bytes; {checked} answers of "
+        f"{cpu_metrics} metrics bit-equal to the CPU run; launches {launches}")
+    log(f"service record breakdown (s): {json.dumps(card['record_breakdown'])}")
+    log(f"service traced: {json.dumps(card['traced'])}")
+    return launches, res
+
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -1114,7 +1460,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6 and 8: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -1192,13 +1538,14 @@ def main() -> int:
         big = phase("4 scale", lambda: scale(dev))
         logs = phase("5 log analytics", lambda: log_analytics(dev))
         tenants = phase("6 registry", lambda: registry(dev))
+        serving = phase("8 service", lambda: service(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
         return 1
     launches, times = main_path
     meas["bucket_count"] = big.pop("bucket_count")
-    per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0]}
+    per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -1217,7 +1564,7 @@ def main() -> int:
     log(json.dumps(line))
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
-                    "log_analytics": logs[1], "registry": tenants[1], "sorts": sorts,
+                    "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())
     print(json.dumps({"ok": True, "device": {

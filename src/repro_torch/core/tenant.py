@@ -5,9 +5,10 @@ npz schema (``tenant_registry/v1`` — a registry saved by either package
 loads in the other).  The registry's ``device`` (``None`` → ``"cuda"``,
 raising without a card; ``"cpu"`` runs the kernels' plain versions) is
 given to every tenant store and to the shared arena, and the host-packed
-cross-tenant merge runs there too — never silently on the CPU.  The hooks
-of the serving planes not yet ported (standing queries, replication) stay
-as inert attributes.
+cross-tenant merge runs there too — never silently on the CPU.  The
+serving planes attach through two hooks: standing-query planes
+(serve/subscriptions.py) through ``_stale_listeners`` and a hot-standby
+shipper (core/replication.py) through ``_replication``.
 
 A production deployment of the paper's Summarizer/Merger framework tracks
 not one metric but thousands — per-service latency, per-table scan sizes,
@@ -251,18 +252,17 @@ class TenantRegistry(PoolStateView):
         self._clock = time.monotonic  # injectable for deadline tests
         self.degraded_served = 0  # Answer(degraded=True) responses handed out
         self.pack_fallbacks = 0  # shared-arena gathers that fell to host pack
-        # standing-query planes (the reference's serve/subscriptions.py,
-        # not yet ported) attach here: every ingest/sweep/eviction tick
-        # notifies them which tenants' versions moved.  Inert until that
-        # plane is ported; runtime state — never persisted.
+        # standing-query planes (serve/subscriptions.py) attach here:
+        # every ingest/sweep/eviction tick notifies them which tenants'
+        # versions moved.  Runtime state — never persisted.
         self._stale_listeners: list = []
         self.last_scrub: dict | None = None  # scrub() report (core/scrub.py)
         self.last_salvage: dict | None = None  # recover(salvage=True) report
-        # hot-standby shipper (the reference's core/replication.py, not
-        # yet ported) — attached via Replicator.attach(): the async ack
-        # path ships through the pool's on_durable hook, the synchronous
-        # ingest path in _replication_ship, and health() surfaces its
-        # stats.  Inert until then; runtime wiring — never persisted.
+        # hot-standby shipper (core/replication.py) — attached via
+        # Replicator.attach(): the async ack path ships through the
+        # pool's on_durable hook, the synchronous ingest path in
+        # _replication_ship, and health() surfaces its stats.  Runtime
+        # wiring — never persisted.
         self._replication = None
 
     @property

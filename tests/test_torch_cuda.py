@@ -9,6 +9,9 @@ the reference package, so it runs on the GPU host as it is::
 Tolerance: bit-equal (``torch.equal``); the row sort compares NaN masks
 and the non-NaN values, so ±0 compare equal.
 """
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -355,3 +358,106 @@ def test_cuda_sorts_at_regime_boundaries(cuda, kv, width, regime):
         for Lp in (L, 2 * L):
             pairs = kernels.argsort_pairs(x, Lp, regime=regime)
             assert torch.equal(pairs, ref.argsort_pairs_ref(x, Lp)), Lp
+
+
+def test_cuda_summarize_tiles_nan_and_inf_match_cpu(cuda):
+    """NaN, ±inf and ±0 in the stream: the card's tile Summarizer gives the
+    CPU run's sizes bit for bit and its boundaries in value with one NaN
+    mask (NaN sort last as one key, so a tile holding NaN ends in NaN
+    boundaries on both sides).  Bits differ only where the row sort writes
+    its one NaN for any NaN and +0 for -0 (``tile_sort.sort_rows``)."""
+    rng = np.random.default_rng(12)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+    for n, share in ((4096, 0.01), (3 * 4096 + 517, 0.2), (2 * 4096, 1.0)):
+        x = rng.lognormal(-1.8, 0.55, size=n).astype(np.float32)
+        at = rng.random(n) < share
+        x[at] = rng.choice(special, int(at.sum()))
+        hg = kernels.summarize_tiles(x, tile_len=1024, T_tile=64, T_out=128, device=cuda)
+        hc = kernels.summarize_tiles(x, tile_len=1024, T_tile=64, T_out=128, device="cpu")
+        assert torch.equal(hg.sizes.cpu().view(torch.int32), hc.sizes.view(torch.int32)), n
+        a, b = hg.boundaries.cpu(), hc.boundaries
+        nan = torch.isnan(b)
+        assert a.dtype == b.dtype and torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan]), n
+        differ = a.view(torch.int32) != b.view(torch.int32)
+        assert bool(((torch.isnan(a) & nan) | ((a == 0) & (b == 0)))[differ].all()), n
+
+
+def test_cuda_subscription_tick_is_one_merge_launch_bit_equal_to_cpu(cuda):
+    """One tick across six tenants: one merge dispatch, one ``merge_cut``
+    launch (from the plane's worker thread), and pushes bit-equal to the
+    same run on the CPU, as host arrays."""
+    from repro_torch.core import TenantRegistry
+    from repro_torch.serve import SubscriptionPlane
+
+    rng = np.random.default_rng(13)
+    names = [f"t{i}" for i in range(6)]
+    data = {n: {d: rng.lognormal(-1.8, 0.55, size=2000).astype(np.float32) for d in range(5)} for n in names}
+    runs = []
+    for dev in (cuda, "cpu"):
+        reg = TenantRegistry(num_buckets=32, shared_arena=True, device=dev)
+        plane = SubscriptionPlane(reg)
+        subs = [plane.subscribe(n, lo, 3, 16) for n in names for lo in (0, 2)]
+        subs += [plane.subscribe(n, 0, 3, 16) for n in names]  # shared windows
+        for n in names:
+            for d in range(4):
+                reg.tenant(n).ingest(d, data[n][d])
+        plane.flush()
+        for n in names:  # store-level: versions move, no ticks
+            reg.tenant(n).ingest(4, data[n][4])
+        kernels.reset_launches()
+        d0, b0 = reg.merge_dispatches, plane.stats()["eval_batches"]
+        plane.mark_stale(names)  # ONE tick covering all six tenants
+        plane.flush()
+        launches = kernels.reset_launches()
+        assert reg.merge_dispatches - d0 == 1 and plane.stats()["eval_batches"] - b0 == 1
+        if dev == cuda:
+            assert launches["merge_cut"] == 1 and launches["tile_sort"] == 0, launches
+        runs.append([sub.drain()[-1] for sub in subs])
+        plane.close()
+        reg.close()
+    for ug, uc in zip(*runs):
+        assert isinstance(ug.hist.boundaries, np.ndarray) and not ug.degraded
+        assert np.array_equal(ug.hist.boundaries, uc.hist.boundaries)
+        assert np.array_equal(ug.hist.sizes, uc.hist.sizes) and ug.eps == uc.eps
+        assert ug.version == uc.version
+
+
+def test_cuda_primary_replica_promote_cycle(cuda, tmp_path):
+    """A card primary ships to a card replica: after ``sync`` the replica's
+    answers are bit-equal to the primary's and to a CPU replica's, zero
+    drift, not degraded; ``promote`` fences the primary, and the promoted
+    service records on the card."""
+    from repro_torch.core import PrimaryFenced
+    from repro_torch.serve import HistogramService
+
+    rng = np.random.default_rng(14)
+    pdir, sdir = str(tmp_path / "primary"), str(tmp_path / "standby")
+    svc = HistogramService(pdir, num_buckets=32, shared_arena=True, replicate_to=[sdir], device=cuda)
+    for m in ("a", "b"):
+        for d in range(6):
+            svc.record_async(m, d, rng.lognormal(-1.8, 0.55, size=3000).astype(np.float32))
+    svc.flush()
+    svc.record("c", 0, rng.normal(size=500).astype(np.float32))
+    qs = [(m, lo, hi) for m in ("a", "b") for lo in range(6) for hi in range(lo, 6)] + [("c", 0, 0)]
+    rep = HistogramService(sdir, role="replica", num_buckets=32, shared_arena=True, device=cuda)
+    kernels.reset_launches()
+    rep.sync()
+    cpu = HistogramService(str(tmp_path / "cpu"), role="replica", num_buckets=32, device="cpu")
+    for name in os.listdir(os.path.join(sdir, "wal")):  # the same shipped bytes
+        shutil.copy(os.path.join(sdir, "wal", name), os.path.join(str(tmp_path / "cpu"), "wal", name))
+    cpu.sync()
+    got, want, oncpu = rep.query_many(qs, 16), svc.query_many(qs, 16), cpu.query_many(qs, 16)
+    assert kernels.LAUNCHES["merge_cut"] > 0
+    assert rep.follower.drift_by_tenant() == {"a": 0, "b": 0, "c": 0}
+    for (hg, eg), (hp, ep), (hc, ec), a in zip(got, want, oncpu, got):
+        assert not a.degraded
+        for h in (hp, hc):
+            assert np.array_equal(hg.boundaries, h.boundaries) and np.array_equal(hg.sizes, h.sizes)
+        assert eg == ep == ec
+    rep.promote(fence=svc.replicator.fence)
+    rep.record("a", 6, rng.normal(size=800).astype(np.float32))
+    assert rep.registry["a"].ids() == list(range(7))
+    with pytest.raises(PrimaryFenced):
+        svc.record("a", 6, rng.normal(size=800).astype(np.float32))
+    for s in (rep, cpu, svc):
+        s.close()

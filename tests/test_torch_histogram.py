@@ -74,6 +74,8 @@ def test_import_gate_in_a_fresh_interpreter():
     code = (
         "import sys; import repro_torch; import repro_torch.core; "
         "import repro_torch.kernels; import repro_torch.convert; "
+        "import repro_torch.serve; import repro_torch.core.telemetry; "
+        "import repro_torch.core.replication; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "from repro_torch.kernels import _lib; "

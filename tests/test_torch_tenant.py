@@ -1,7 +1,7 @@
 """Port parity: ``repro_torch``'s ``TenantRegistry`` against ``repro``'s.
 
-Mirrors ``tests/test_tenant.py`` (all but its two ``TelemetryHub`` tests:
-telemetry is not ported yet) and the ``TenantRegistry`` cases of
+Mirrors ``tests/test_tenant.py`` (its two ``TelemetryHub`` tests are in
+``tests/test_torch_service.py``) and the ``TenantRegistry`` cases of
 ``tests/test_faults.py``, ``tests/test_resilience.py`` and
 ``tests/test_chaos_props.py``.  Each builds the reference registry and the
 port's from the same seeded NumPy partitions and holds every answer and ε
@@ -108,7 +108,7 @@ def test_tenant_get_or_create_shares_config():
     with pytest.raises(KeyError):
         reg["b"]
     assert len(reg) == 1 and reg.names() == ["a"]
-    assert reg._replication is None and reg._stale_listeners == []  # inert hooks
+    assert reg._replication is None and reg._stale_listeners == []  # nothing attached
 
 
 def test_tenant_names_are_str_normalized():
