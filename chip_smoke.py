@@ -16,8 +16,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    non-finite boundaries, n = 0 problems and β > k(T+1));
    2b. the sorts' crossover sweep (row lengths 2^12 .. 2^20 at 2^28 keys,
    resident and onesweep where both apply) and the main path's exact sort
-   shapes, uniform and skewed, each held to its plain version and timed
-   beside ``torch.sort``;
+   shapes, uniform and skewed (phase 9's single rows of 2^28 and
+   28,311,552 values among them), each held to its plain version and
+   timed beside ``torch.sort``;
    2c. the bucket count at the main path's three shapes (a day, a window,
    a registry window): device µs, wall µs and launches a call over 100
    back-to-back calls;
@@ -56,21 +57,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    WAL, bit-equal; a checkpoint and ``promote`` of the replica fencing the
    old primary; then the same sequence on the CPU for 4 metrics,
    bit-equal to the card's answers;
+9. the distributed and training plane (``repro_torch.core.distributed``,
+   telemetry's ``grad_quantile``, ``repro_torch.optim``,
+   ``repro_torch.data``; it runs before phase 7 too) on an NCCL group of
+   one rank, its rendezvous a ``FileStore`` in ``build/``:
+   ``distributed_histogram`` of 2^28 seeded Gumbel values (T=4096,
+   β=254) and ``distributed_histogram_hierarchical`` of the same values
+   (tile 8,192, T 512 → 4,096 → 4,096 → 254), each held against an exact
+   sort to its composed bound, and again at 2^22 values bit-equal to the
+   CPU; the Summarizer of the 2^28 shard and of every gradient leaf equal
+   to ``torch.sort`` at its cuts; a SmolLM-135M gradient tree (272 leaves, 1.35e8 values) through
+   ``grad_quantile`` (rank error within 2N/T of an exact count), quantile
+   ``clip_grads`` + one ``adamw_update`` and ``compress_grads`` (sparse +
+   residual equal to the gradient), without a mesh and with it;
+   ``LengthBucketer`` over 64 shards × 2^20 document lengths, bit-equal
+   to a CPU fit; every call's device ms from CUDA events, the all-gather's,
+   and the device-level merge (Q = 1, long) split into its kv sort and its
+   scan and cut;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6 and 8, in each regime that holds it: device µs a call by
+   phases 3–6, 8 and 9, in each regime that holds it: device µs a call by
    item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
 then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5, 6 and 8 are the main paths: each is run with the launch
+Phases 3, 5, 6, 8 and 9 are the main paths: each is run with the launch
 counts set to 0 just before it and read just after, and fails unless every
-kernel of its path was launched; the run fails unless each kernel was
-launched on the four together (the kv sort only sorts merges too long for
-one block: the log analytics path's T=2048 window merges).
+kernel of its path was launched (phase 9: the row sort, the kv sort and
+the merge); the run fails unless each kernel was launched on the five
+together (the kv sort only sorts merges too long for one block: the log
+analytics path's T=2048 window merges and phase 9's merges of many
+summaries).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
-Writes nothing outside ``build/`` (the kernel build, the merge shapes, and
-phase 8's service directories, removed at its end).
+Writes nothing outside ``build/`` (the kernel build, the merge shapes,
+phase 8's service directories and phase 9's rendezvous, removed at their
+ends).
 """
 from __future__ import annotations
 
@@ -119,29 +140,87 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def device_breakdown(fn) -> dict:
-    """Run ``fn`` under ``torch.profiler``: wall time, device kernel time by
-    name (top 6) and the device's idle share of the wall time."""
+# the runtime and driver calls that start device work: a trace keeps one
+# device record of each, under the call's correlation id
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+
+
+def lost_launches(prof) -> int:
+    """Launches in a trace with no device record.  A trace opened after a
+    stretch without one can drop the records of kernels that started on an
+    idle card; a short trace just before it makes that rare, and this count
+    shows where it still happened."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    recorded = {e.correlation_id() for e in events if e.device_type() == cuda}
+    return sum(1 for e in events if e.device_type() != cuda and e.name().startswith(LAUNCH_APIS)
+               and e.correlation_id() not in recorded)
+
+
+def traced(fn, reps: int = 1, retries: int = 0):
+    """``reps`` calls of ``fn`` under ``torch.profiler`` (CPU and CUDA),
+    after a throwaway trace of a few small kernels; traced again, up to
+    ``retries`` times, while the trace lost launches.  Returns the
+    profile, the wall seconds of the calls, their device ms between CUDA
+    events, the launches the trace lost and the traces made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for tries in range(1, retries + 2):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = {}
+        with profile(activities=activities):
+            w = torch.zeros(1024, device="cuda")
+            for _ in range(8):
+                w.add_(1)
+            torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lost = lost_launches(prof)
+        if not lost:
+            break
+    return prof, wall, start.elapsed_time(end), lost, tries
+
+
+def device_items(prof) -> tuple[dict, int]:
+    """Device µs by kernel or copy name in a trace, and their launches."""
+    import torch
+
+    items, ops = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             t = e.self_cuda_time_total if t is None else t
             if t > 0:
-                kern[e.key] = kern.get(e.key, 0.0) + t / 1e3
+                items[e.key] = items.get(e.key, 0.0) + t
+                ops += e.count
+    return items, ops
+
+
+def device_breakdown(fn, retries: int = 0) -> dict:
+    """Run ``fn`` under ``torch.profiler``: wall time, device kernel time by
+    name (top 6), the device's idle share of the wall time, the CUDA
+    events' ms around the same call and the launches the trace lost
+    (``retries``: trace again while it lost some; for a ``fn`` that can run
+    more than once)."""
+    prof, wall, events, lost, _ = traced(fn, retries=retries)
+    items, _ = device_items(prof)
+    kern = {k: t / 1e3 for k, t in items.items()}
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
     return {
         "wall_ms": wall * 1e3,
+        "events_ms": events,
+        "lost_launches": lost,
         "device_ms": busy,
         "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
         "top_kernels_ms": {k[:60]: v for k, v in top},
@@ -382,7 +461,7 @@ def check_tiles_nonfinite(dev) -> int:
 
 
 # the kernels every path with a bucket count launches; the kv sort runs only
-# in a merge too long for one block, so it is held to the four main paths
+# in a merge too long for one block, so it is held to the five main paths
 # together (main)
 PATH_KERNELS = ("tile_sort", "merge_cut", "bucket_count")
 # the merge's own kernels in a trace (csrc/merge_cut.cu)
@@ -494,7 +573,7 @@ def check_merge(dev, rng) -> dict:
     ms = cuda_ms(lambda: kernels.merge_batched(bnd_q, sz_q, beta_q))
     plain = cuda_ms(lambda: ref.merge_ref(bnd_q, sz_q, beta_q))
     Q, k, T1 = bnd_q.shape
-    lreal, L = k * T1, 1 << (k * T1 - 1).bit_length()
+    lreal = k * T1
     b, by = bound_ms(merge_bytes(Q, k, T1, beta_q), Q * lreal * np.log2(lreal))
     out = {"merge_cut": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)}
     # the call's device time split into its kv sort and the merge's own kernel
@@ -505,8 +584,8 @@ def check_merge(dev, rng) -> dict:
     out["merge_split"] = {
         "kv_sort_ms": (sum(items.values()) - own) / 1e3,
         "scan_and_cut_ms": own / 1e3,
-        "kv_sort_bound_ms": bound_ms(16.0 * Q * L, 0)[0],
-        "scan_and_cut_bound_ms": bound_ms(12.0 * Q * L, 0)[0],
+        "kv_sort_bound_ms": bound_ms(16.0 * Q * lreal, 0)[0],
+        "scan_and_cut_bound_ms": bound_ms(12.0 * Q * lreal, 0)[0],
     }
     log(f"merge query split (device ms a call): {json.dumps(out['merge_split'])}")
     log(f"merge query 1000x32x2033 beta=254: {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms; "
@@ -549,11 +628,13 @@ class MergeShapes:
 
 
 def merge_shape_inputs(rng, Q: int, k: int, T1: int, dtype: str, dev):
-    """Seeded inputs of one merge shape, total mass below 2^24 a problem."""
+    """Seeded inputs of one merge shape, total mass at most 2^24 a problem
+    (float32 sums exact)."""
     import torch
 
     Tn = T1 - 1
-    hi = max(Tn + 2, min(400_000, (1 << 24) // (k + 1)))
+    # n = Tn exactly where k·(Tn + 1) passes 2^24 (phase 9's 32,768 × 512)
+    hi = max(Tn + 1, min(400_000, (1 << 24) // (k + 1)))
     b, s = summary_inputs(rng, Q, k, Tn, hi, False, dev, T=Tn)
     return (torch.round(b).to(torch.int32) if dtype == "int32" else b), s
 
@@ -582,7 +663,7 @@ def merge_shape_times(dev, seen: dict, regimes: bool = True) -> list[dict]:
                    "regime": regime or "default", "bound_us": merge_bound_ms(Q, k, T1, beta) * 1e3,
                    **calls_breakdown(call, 20)}
             got = kernels.reset_launches()
-            row["launches_per_call"] = {name: got[name] / 41 for name in ("merge_cut", "sort_kv")}  # 1 + 2 × 20
+            row["launches_per_call"] = {name: got[name] / row["calls"] for name in ("merge_cut", "sort_kv")}
             rows.append(row)
             log("merge shape " + json.dumps(row))
     return rows
@@ -591,9 +672,9 @@ def merge_shape_times(dev, seen: dict, regimes: bool = True) -> list[dict]:
 def calls_breakdown(fn, reps: int = 100) -> dict:
     """``reps`` back-to-back calls of ``fn``: wall µs a call (host clock to
     a synchronise), and from a ``torch.profiler`` trace of another ``reps``
-    calls, device µs a call by item and device operations a call."""
+    calls (traced again while it lost launches), device µs a call by item,
+    device operations a call, and the calls of ``fn`` made."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
@@ -602,20 +683,13 @@ def calls_breakdown(fn, reps: int = 100) -> dict:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    items, ops = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            t = e.self_cuda_time_total if t is None else t
-            if t > 0:
-                items[e.key[:50]] = items.get(e.key[:50], 0.0) + t / reps
-                ops += e.count
+    prof, _, _, lost, tries = traced(fn, reps, retries=2)
+    raw, ops = device_items(prof)
+    items = {}
+    for key, t in raw.items():
+        items[key[:50]] = items.get(key[:50], 0.0) + t / reps
     return {"wall_us": wall, "device_us": sum(items.values()), "device_ops": ops / reps,
-            "device_us_by_item": items}
+            "device_us_by_item": items, "lost_launches": lost, "calls": 1 + reps * (1 + tries)}
 
 
 def bucket_count_shapes(dev) -> list[dict]:
@@ -638,7 +712,7 @@ def bucket_count_shapes(dev) -> list[dict]:
         assert torch.equal(bucket_count.counts(x, b), ref.counts_ref(x, b)), name
         kernels.reset_launches()
         row = {"shape": name, "n": n, "T+1": T1, **calls_breakdown(lambda: bucket_count.counts(x, b))}
-        row["launches_per_call"] = kernels.reset_launches()["bucket_count"] / 201  # warm-up + 2 × 100
+        row["launches_per_call"] = kernels.reset_launches()["bucket_count"] / row["calls"]
         out.append(row)
         log("bucket count shape " + json.dumps(row))
     return out
@@ -688,6 +762,7 @@ def sort_sweep(dev) -> dict:
     lognormal = lambda r, w: torch.exp(torch.randn((r, w), generator=g, device=dev) * 0.55 - 1.8)
     gumbel = lambda r, w: -torch.log(-torch.log(torch.rand((r, w), generator=g, device=dev)))
     ties = lambda r, w: torch.randint(-50, 50, (r, w), generator=g, device=dev, dtype=torch.int32)
+    magnitude = lambda r, w: torch.randn((r, w), generator=g, device=dev).abs_()
     cases = [  # (name, kind, rows, width, maker)
         ("scale Summarizer 256x2^20 gumbel", "row", 256, 1 << 20, gumbel),
         ("paper Summarizer 31x2^18 gumbel", "row", 31, 1 << 18, gumbel),
@@ -698,6 +773,9 @@ def sort_sweep(dev) -> dict:
         ("registry query merge 1000x8224 (L=16384)", "pairs", 1000, 32 * 257, lognormal),
         ("query merge 1000x65056 (L=65536)", "pairs", 1000, 32 * (T + 1), gumbel),
         ("kv i32 ties 64x2^16", "kv", 64, 1 << 16, ties),
+        # phase 9's single rows: a device's shard, and the embedding's gradient leaf
+        ("distributed shard 1x2^28 gumbel", "row", 1, 1 << 28, gumbel),
+        ("embed gradient leaf 1x28311552 |normal|", "row", 1, 49_152 * 576, magnitude),
         # skew at the sweep's size: against its 2^16-wide uniform rows
         ("i32 ties 4096x2^16", "row", 4096, 1 << 16, ties),
         ("lognormal 4096x2^16", "row", 4096, 1 << 16, lognormal),
@@ -1451,6 +1529,284 @@ def service(dev, metrics: int = 64, days: int = 31, n: int = 65_536, n_subs: int
     return launches, res
 
 
+# ----------------------------------------------------------------- phase 9
+
+# SmolLM-135M's parameter shapes (src/repro/configs/smollm_135m.py: 30
+# layers, d_model 576, 9 heads × 64, 3 kv heads, d_ff 1,536, vocab 49,152,
+# tied embeddings), written out here: the gradient tree of phase 9
+SMOLLM_135M = {"layers": 30, "d_model": 576, "heads": 9, "kv_heads": 3, "head_dim": 64,
+               "d_ff": 1536, "vocab": 49_152}
+
+
+def smollm_grad_shapes() -> dict[str, tuple[int, ...]]:
+    """``named_parameters()``-style names and shapes: 272 leaves, 134.5 M
+    values."""
+    c = SMOLLM_135M
+    d, q, kv, ff = c["d_model"], c["heads"] * c["head_dim"], c["kv_heads"] * c["head_dim"], c["d_ff"]
+    shapes = {"embed.weight": (c["vocab"], d)}
+    for i in range(c["layers"]):
+        p = f"layers.{i}."
+        shapes.update({
+            p + "attn_norm.weight": (d,), p + "attn.wq": (d, q), p + "attn.wk": (d, kv),
+            p + "attn.wv": (d, kv), p + "attn.wo": (q, d), p + "mlp_norm.weight": (d,),
+            p + "mlp.gate": (d, ff), p + "mlp.up": (d, ff), p + "mlp.down": (ff, d),
+        })
+    shapes["final_norm.weight"] = (d,)
+    return shapes
+
+
+def seeded_tree(dev, shapes: dict, seed: int) -> dict:
+    """Normal values on the card with a per-leaf scale, from ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(s, generator=g, device=dev) * float(10.0 ** rng.uniform(-4, -1))
+            for k, s in shapes.items()}
+
+
+def event_call(fn):
+    """``(fn(), device ms between CUDA events around it, wall ms)``."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def world_1(h, beta: int):
+    """What a mesh of one rank gives ``gather_and_merge``: the merge of the
+    one summary (the all-gather of one rank is the identity)."""
+    from repro_torch.core import Histogram, merge
+
+    return merge(Histogram(h.boundaries[None], h.sizes[None]), beta)
+
+
+def same_hist(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.boundaries.cpu(), b.boundaries.cpu()) and torch.equal(a.sizes.cpu(), b.sizes.cpu())
+
+
+def rank_window(leaves, thr) -> tuple[int, int]:
+    """Exact ``#(|g| < thr)`` and ``#(|g| <= thr)`` over the leaves."""
+    import torch
+
+    lt = sum(int(torch.sum(torch.abs(g) < thr)) for g in leaves)
+    le = sum(int(torch.sum(torch.abs(g) <= thr)) for g in leaves)
+    return lt, le
+
+
+def distributed_plane(dev, n_log2: int = 28, n_small_log2: int = 22) -> tuple[dict, dict]:
+    """The distributed Summarizer → Merger and the gradient-quantile plane
+    on an NCCL group of one rank (``FileStore`` rendezvous in ``build/``):
+
+    a. ``distributed_histogram`` of 2^28 seeded Gumbel values (1 GiB, a
+       device's data shard), T = 4096, β = 254, on a ``("data",)`` mesh;
+    b. the same values through ``distributed_histogram_hierarchical`` on a
+       ``(1, 1)`` ``("pod", "data")`` mesh at its defaults;
+    c. a and b at 2^22 values, then their CPU runs;
+    d. a SmolLM-135M gradient tree (272 leaves): ``grad_quantile``,
+       quantile ``clip_grads`` + one ``adamw_update``, ``compress_grads``,
+       each without a mesh and with the one-rank mesh;
+    e. ``LengthBucketer(8, 256).fit`` of 64 shards × 2^20 document lengths.
+
+    The launch counts are read right after those calls; then the checks
+    (the Summarizers of a and of every gradient leaf equal to ``torch.sort``
+    at their cuts; a, b: true occupancy from ``torch.sort`` within the
+    composed bounds; c, e: bit-equal to the CPU; d: rank error within 2N/T
+    of an exact count, sparse + residual equal to the gradient) and the
+    device-level merge of b timed, split into its kv sort and its scan and
+    cut.  Returns the launch counts and the measurements."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.core import (
+        build_exact_batched, distributed_histogram, distributed_histogram_hierarchical,
+        hierarchical_device_summary, hierarchical_eps_bound, local_summarize, theoretical_eps_max,
+    )
+    from repro_torch.core.telemetry import grad_quantile, tree_summaries
+    from repro_torch.data import LengthBucketer, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import (
+        CompressionConfig, OptimizerConfig, adamw_update, clip_grads, compress_grads, init_opt_state,
+        init_residual,
+    )
+
+    T_a, tile, T_tile, T_dev, T_pod = 4096, 8192, 512, 4096, 4096  # b: the module's defaults
+    N, n_small = 1 << n_log2, 1 << n_small_log2
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = -torch.log(torch.empty(N, device=dev).exponential_(generator=g).clamp_(min=torch.finfo(torch.float32).tiny))
+    shapes = smollm_grad_shapes()
+    grads = seeded_tree(dev, shapes, SEED + 10)
+    params = seeded_tree(dev, shapes, SEED + 11)
+    n_grad = sum(v.numel() for v in grads.values())
+    data = SyntheticLM(vocab_size=SMOLLM_135M["vocab"], seq_len=2048, global_batch=1, seed=SEED)
+    rng = np.random.default_rng(SEED + 12)
+    shards = [data.doc_lengths(rng, 1 << 20) for _ in range(64)]
+    cfg = OptimizerConfig(clip_mode="quantile", clip_q=0.999, clip_hist_T=512)
+    ccfg = CompressionConfig(enabled=True, rho=0.01, hist_T=1024)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="nccl-", dir=os.path.join(ROOT, "build"))
+    torch.cuda.set_device(dev)
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh, pods = make_mesh((1,), ("data",)), make_mesh((1, 1), ("pod", "data"))
+        ms, wall = {}, {}
+
+        def call(name, fn):
+            out, ms[name], wall[name] = event_call(fn)
+            return out
+
+        t0 = time.perf_counter()  # NCCL makes its communicators at the first collective
+        for m in (mesh, pods):
+            for ax in m.mesh_dim_names:
+                dist.all_gather([torch.empty(1, device=dev)], torch.zeros(1, device=dev), group=m.get_group(ax))
+        torch.cuda.synchronize()
+        nccl_init_ms = (time.perf_counter() - t0) * 1e3
+        kernels.reset_launches()
+        big, small = f"2^{n_log2}", f"2^{n_small_log2}"
+        h_a = call(f"a distributed_histogram {big}", lambda: distributed_histogram(x, T_a, BETA, mesh))
+        h_b = call(f"b hierarchical {big}", lambda: distributed_histogram_hierarchical(x, pods))
+        xs = x[:n_small]
+        s_a = call(f"c distributed_histogram {small}", lambda: distributed_histogram(xs, T_a, BETA, mesh))
+        s_b = call(f"c hierarchical {small}", lambda: distributed_histogram_hierarchical(xs, pods))
+        thr = {}
+        for tag, kw in (("no mesh", {}), ("mesh", {"mesh": mesh, "axis_names": ("data",)})):
+            thr[tag] = call(f"d grad_quantile {tag}", lambda: grad_quantile(grads, 0.999, 512, **kw))
+            clipped, cm = call(f"d clip_grads {tag}", lambda: clip_grads(grads, cfg, **kw))
+            state = init_opt_state(params, cfg)
+            new_p, new_s, _ = call(f"d adamw_update {tag}", lambda: adamw_update(clipped, state, params, cfg))
+            resid = init_residual(grads)
+            sparse, new_r, km = call(f"d compress_grads {tag}", lambda: compress_grads(grads, resid, ccfg, **kw))
+            thr[tag + " clip"], thr[tag + " compress"], thr[tag + " kept"] = (
+                cm["clip_threshold"], km["compress_threshold"], km["compress_kept_fraction"])
+            assert torch.equal(thr[tag + " clip"], thr[tag])
+            for k, v in clipped.items():
+                assert bool(torch.all(torch.abs(v) <= thr[tag])), k
+            for k in grads:  # error feedback is lossless, bit for bit
+                assert torch.equal(sparse[k] + new_r[k], grads[k]), k
+                assert bool(torch.isfinite(new_p[k]).all()) and not torch.equal(new_p[k], params[k]), k
+            assert int(new_s["step"]) == 1
+            del clipped, state, new_p, new_s, resid, sparse, new_r
+        fit = call("e LengthBucketer.fit 64 x 2^20", lambda: LengthBucketer(8, 256, device=dev).fit(shards))
+        launches = kernels.reset_launches()
+        path_s = time.perf_counter() - t_phase
+        for name in ("tile_sort", "sort_kv", "merge_cut"):
+            assert launches[name] > 0, f"distributed path never launched {name}: {launches}"
+
+        # the path's row sorts at its own shapes: each Summarizer's boundaries
+        # are the sorted values at the masked cuts (no sums: exact at any n)
+        def at_cuts(v, T_):
+            n = v.shape[0]
+            cuts = torch.minimum(torch.as_tensor(ref.masked_cuts([n], T_))[0], torch.tensor(n - 1))
+            return v[cuts.to(v.device)]
+
+        v = torch.sort(x).values
+        assert same_sorted(local_summarize(x, T_a).boundaries, at_cuts(v, T_a)), "a's Summarizer"
+        for key, h in tree_summaries(grads, 512).items():
+            leaf = next(g for name, g in grads.items() if key == f"['{name}']")
+            want = at_cuts(torch.sort(torch.abs(leaf).reshape(-1)).values, min(512, leaf.numel()))
+            assert same_sorted(h.boundaries, want), f"gradient leaf {key}'s Summarizer"
+        res = {}
+        n_tiles = N // tile
+        bounds = {
+            "a": theoretical_eps_max(N, T_a, k=1, exact_inputs=False),
+            "b": hierarchical_eps_bound(N, (T_tile, T_dev, T_pod), (n_tiles, 1, 1)),
+        }
+        for tag, h in (("a", h_a), ("b", h_b)):
+            b = h.boundaries
+            assert b.shape == (BETA + 1,) and bool(torch.isfinite(b).all()), tag
+            lo, hi = torch.searchsorted(v, b[:-1]), torch.searchsorted(v, b[1:])
+            true = (hi - lo).double()
+            true[-1] += float((v == b[-1]).sum())
+            assert float(true.sum()) == N, tag
+            err = float((true - N / BETA).abs().max())
+            rep = float((h.sizes.double() - N / BETA).abs().max())
+            assert err <= bounds[tag] and rep <= bounds[tag], (tag, err, rep, bounds[tag])
+            res[tag] = {"true_err": err, "reported_err": rep, "bound": bounds[tag],
+                        "sizes_sum": float(h.sizes.double().sum())}
+        assert res["a"]["sizes_sum"] == N
+        del v
+        # c: the 2^22 runs bit-equal to the world-1 composition on the CPU
+        xc = xs.cpu()
+        cpu_a = world_1(local_summarize(xc, T_a), BETA)
+        cpu_b = world_1(world_1(hierarchical_device_summary(xc, tile, T_tile, T_dev), T_pod), BETA)
+        assert same_hist(s_a, cpu_a) and same_hist(s_b, cpu_b)
+        assert float(s_a.sizes.double().sum()) == n_small == float(s_b.sizes.double().sum())
+        # d: the thresholds' rank error against an exact count
+        T_gq = 512
+        for tag in ("no mesh", "mesh"):
+            for key, q, Tq in ((tag, 0.999, T_gq), (tag + " compress", 1 - ccfg.rho, ccfg.hist_T)):
+                lt, le = rank_window(grads.values(), thr[key])
+                target = q * n_grad
+                off = max(0.0, lt - target, target - le)
+                assert off <= 2 * n_grad / Tq, (key, lt, le, target)
+                res[f"rank_off {key}"] = off / n_grad
+            kept = float(thr[tag + " kept"])
+            assert abs(kept - ccfg.rho) <= 2 / ccfg.hist_T, (tag, kept)
+        # e: the bucketer bit-equal to a CPU fit
+        cpu_fit = LengthBucketer(8, 256, device="cpu").fit(shards)
+        assert fit.boundaries_.tobytes() == cpu_fit.boundaries_.tobytes()
+        assert torch.equal(fit.merged_.sizes.cpu(), cpu_fit.merged_.sizes)
+
+        # the all-gather of one summary's boundaries, and the device-level merge of b split
+        b1 = h_a.boundaries.new_zeros((T_a + 1,))
+        outs = [torch.empty_like(b1)]
+        ag_ms = cuda_ms(lambda: dist.all_gather(outs, b1, group=mesh.get_group("data")), reps=100)
+        head = x[: n_tiles * tile].reshape(n_tiles, tile)
+        tiles = build_exact_batched(head, T_tile)
+        bnd, sz = tiles.boundaries[None].contiguous(), tiles.sizes[None].contiguous()
+        whole = cuda_ms(lambda: kernels.merge_batched(bnd, sz, T_dev), reps=5)
+        items = calls_breakdown(lambda: kernels.merge_batched(bnd, sz, T_dev), 5)["device_us_by_item"]
+        own = sum(t for key, t in items.items() if any(m in key for m in MERGE_KERNELS))
+        if own <= 0:
+            raise RuntimeError(f"no merge kernel ({MERGE_KERNELS}) in the trace: {sorted(items)}")
+        pairs = n_tiles * (T_tile + 1)  # the bounds count these, not the kv sort's padding
+        res["device_merge_q1"] = {
+            "shape": [1, n_tiles, T_tile + 1, T_dev], "pairs": pairs, "ms": whole,
+            "kv_sort_ms": (sum(items.values()) - own) / 1e3, "scan_and_cut_ms": own / 1e3,
+            "bound_ms": merge_bound_ms(1, n_tiles, T_tile + 1, T_dev),
+            "kv_sort_bound_ms": bound_ms(16.0 * pairs, 0)[0], "scan_and_cut_bound_ms": bound_ms(12.0 * pairs, 0)[0],
+        }
+        del head, tiles, bnd, sz
+        res["traced"] = {
+            f"a distributed_histogram {big}": device_breakdown(
+                lambda: distributed_histogram(x, T_a, BETA, mesh), retries=2),
+            f"b hierarchical {big}": device_breakdown(lambda: distributed_histogram_hierarchical(x, pods), retries=2),
+            "d grad_quantile no mesh": device_breakdown(lambda: grad_quantile(grads, 0.999, 512), retries=2),
+        }
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    res.update(call_ms=ms, call_wall_ms=wall, all_gather_ms=ag_ms, nccl_init_ms=nccl_init_ms,
+               path_s=path_s, values=N,
+               grad_leaves=len(shapes), grad_values=n_grad,
+               thresholds={k: float(t) for k, t in thr.items()}, bucket_boundaries=fit.boundaries_.tolist())
+    for name in ms:
+        log(f"distributed call {name}: device {ms[name]:.3f} ms (CUDA events), wall {wall[name]:.3f} ms")
+    log(f"distributed: NCCL communicators {nccl_init_ms:.1f} ms; all-gather of {T_a + 1} float32 on the "
+        f"one-rank mesh {ag_ms:.4f} ms a call; device-level merge (Q=1) {json.dumps(res['device_merge_q1'])}")
+    log(f"distributed: the Summarizers of a and of the {len(shapes)} gradient leaves equal to torch.sort at "
+        f"their cuts; a/b within bounds ({json.dumps({k: res[k] for k in ('a', 'b')})}); 2^22 bit-equal to "
+        f"the CPU; {len(shapes)} leaves, {n_grad} values, thresholds {json.dumps(res['thresholds'])}; "
+        f"bucketer bit-equal to the CPU; launches {launches}; path {path_s:.1f} s")
+    log(f"distributed traced: {json.dumps(res['traced'])}")
+    return launches, res
+
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -1460,7 +1816,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6 and 8: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6, 8 and 9: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -1539,13 +1895,15 @@ def main() -> int:
         logs = phase("5 log analytics", lambda: log_analytics(dev))
         tenants = phase("6 registry", lambda: registry(dev))
         serving = phase("8 service", lambda: service(dev))
+        plane = phase("9 distributed", lambda: distributed_plane(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
         return 1
     launches, times = main_path
     meas["bucket_count"] = big.pop("bucket_count")
-    per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0]}
+    per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0],
+                "distributed": plane[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -1564,7 +1922,8 @@ def main() -> int:
     log(json.dumps(line))
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
-                    "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "sorts": sorts,
+                    "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "distributed": plane[1],
+                    "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())
     print(json.dumps({"ok": True, "device": {

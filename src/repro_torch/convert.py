@@ -1,5 +1,5 @@
-"""Carry ``HistogramStore`` and ``TenantRegistry`` state across from the
-JAX package.
+"""Carry ``HistogramStore``, ``TenantRegistry`` and optimizer state across
+from the JAX package.
 
 The two packages share their on-disk formats, so an npz that one saved
 loads in the other (``HistogramStore.load``, ``TenantRegistry.load``) and
@@ -9,16 +9,21 @@ the reference's ``HistogramStore._state()`` (or the full meta dict that
 its ``save`` writes, which adds the store configuration).
 :func:`registry_from_reference` takes a registry's: the meta dict and the
 arrays of the reference's ``TenantRegistry.save`` container.
+:func:`opt_state_from_reference` takes the reference's optimizer state
+(``repro.optim.init_opt_state``/``adamw_update``) as NumPy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.retention import policy_from_spec
 from repro_torch.core.stream import HistogramStore
 from repro_torch.core.tenant import TenantRegistry
+from repro_torch.device import as_tensor, resolve_device
+from repro_torch.tree import tree_map
 
-__all__ = ["registry_from_reference", "store_from_reference"]
+__all__ = ["opt_state_from_reference", "registry_from_reference", "store_from_reference"]
 
 
 def _config(meta: dict, arrays, overrides: dict) -> dict:
@@ -76,3 +81,28 @@ def registry_from_reference(
     return TenantRegistry._from_state(
         meta, {k: np.asarray(v) for k, v in arrays.items()}, device
     )
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, bit for bit; bfloat16
+    (``ml_dtypes``, which NumPy knows only by name) goes through its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.int16))  # a writable copy
+        return bits.to(resolve_device(device)).view(torch.bfloat16)
+    return as_tensor(a, device)
+
+
+def opt_state_from_reference(state: dict, device=None) -> dict:
+    """The port's optimizer state (``repro_torch.optim``) holding the
+    reference's ``{"m", "v", "step"}`` bit for bit, on ``device``
+    (``None`` → ``"cuda"``).
+
+    ``state`` is the reference's state with its leaves as NumPy arrays
+    (``jax.tree.map(np.asarray, state)``); float32 and bfloat16 moments
+    keep their dtype, the step stays int32."""
+    return {
+        "m": tree_map(lambda a: _leaf(a, device), state["m"]),
+        "v": tree_map(lambda a: _leaf(a, device), state["v"]),
+        "step": _leaf(state["step"], device),
+    }

@@ -122,8 +122,10 @@ def pad_pow2(values, min_len: int = 1) -> tuple[np.ndarray, int]:
 
 
 def _sizes(ns, num_buckets: int, count_dtype, device) -> torch.Tensor:
-    cuts = ref.masked_cuts(ns, num_buckets)
-    return torch.as_tensor(np.diff(cuts, axis=-1)).to(device=device, dtype=count_dtype)
+    # a host-to-device copy that does not wait for the stream: CUDA stages
+    # pageable host memory before the copy call returns
+    sizes = torch.as_tensor(np.diff(ref.masked_cuts(ns, num_buckets), axis=-1)).to(count_dtype)
+    return sizes.to(device, non_blocking=True)
 
 
 def build_exact_padded_batched(
@@ -294,12 +296,15 @@ def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor
     x, xp = x.to(dt), xp.to(dt)
     fp = fp.to(torch.promote_types(fp.dtype, torch.float32))
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
+    # take, not fp[i]: indexing by a 0-d tensor reads it back to the host
+    f_hi, f_lo = torch.take(fp, i), torch.take(fp, i - 1)
+    x_lo = torch.take(xp, i - 1)
+    df = f_hi - f_lo
+    dx = torch.take(xp, i) - x_lo
+    delta = x - x_lo
     eps = float(np.spacing(np.finfo(np.float32 if dt == torch.float32 else np.float64).eps))
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(dx0, f_lo, f_lo + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
 

@@ -1,11 +1,11 @@
 """Training-plane integrations of the mergeable-histogram primitive.
 
-PyTorch port of ``repro.core.telemetry`` without its distributed part
-(``tensor_summary``, ``tree_summaries`` and ``grad_quantile`` need the
-port of ``core/distributed.py``, which is not here yet).  Every class
-takes a ``device`` (``None`` → the card, raising without one; ``"cpu"``
-runs the kernels' plain versions) and hands it to the registry and to
-``build_exact``/``merge``.
+PyTorch port of ``repro.core.telemetry``.  Every class and function takes
+a ``device`` (``None`` → the card, raising without one; ``"cpu"`` runs the
+kernels' plain versions; a tensor stays where it lies) and hands it to the
+registry and to ``build_exact``/``merge``.  A tree of tensors is a nested
+dict, list or tuple (:mod:`repro_torch.tree`), its leaves named and
+ordered as ``jax.tree_util`` names and orders them.
 
 The paper's motivating statistic is "p95 latency over all servers for any
 time window".  A large training job needs exactly that class of query over
@@ -25,22 +25,96 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import tensor_histogram_in_step
 from repro_torch.core.histogram import (
     Histogram,
     _host,
+    as_tensor,
     build_exact,
-    merge,
+    merge_list,
     quantile,
 )
 from repro_torch.core.retention import RetentionPolicy
 from repro_torch.core.tenant import TenantRegistry
+from repro_torch.tree import flatten_with_path
 
 __all__ = [
+    "tensor_summary",
+    "tree_summaries",
+    "grad_quantile",
     "StragglerDetector",
     "TelemetryLog",
     "TelemetryHub",
     "timed",
 ]
+
+
+def tensor_summary(
+    x,
+    T: int = 256,
+    *,
+    magnitude: bool = True,
+    mesh=None,
+    axis_names: tuple[str, ...] = (),
+    device=None,
+) -> Histogram:
+    """T-bucket summary of one tensor.
+
+    With a mesh, uses the paper's per-shard summarize + all-gather merge
+    (``O(k·T)`` comm); without one, an exact local histogram.
+    """
+    v = as_tensor(x, device)
+    v = torch.abs(v) if magnitude else v
+    v = v.to(torch.float32)
+    if mesh is not None and axis_names:
+        return tensor_histogram_in_step(v, T, T, mesh, axis_names)
+    flat = v.reshape(-1)
+    return build_exact(flat, min(T, flat.shape[0]))
+
+
+def tree_summaries(
+    tree: Any,
+    T: int = 256,
+    *,
+    mesh=None,
+    axis_names: tuple[str, ...] = (),
+    magnitude: bool = True,
+    device=None,
+) -> dict[str, Histogram]:
+    """Per-leaf summaries of a tree (e.g. the gradient tree), keyed by
+    ``jax.tree_util.keystr`` of each leaf's path, in JAX's leaf order."""
+    out = {}
+    for name, leaf in flatten_with_path(tree):
+        out[name] = tensor_summary(
+            leaf, T, magnitude=magnitude, mesh=mesh, axis_names=axis_names, device=device
+        )
+    return out
+
+
+def grad_quantile(
+    grads: Any,
+    q: float,
+    T: int = 512,
+    *,
+    mesh=None,
+    axis_names: tuple[str, ...] = (),
+    device=None,
+) -> torch.Tensor:
+    """Approximate q-quantile of |g| over the whole gradient tree, a 0-d
+    tensor where the gradients lie (no host sync).
+
+    Per-leaf summaries are *merged* (not averaged) — Theorem 1 bounds the
+    rank error of the returned threshold by ``2/T`` of the total count, which
+    is what makes quantile clipping and top-ρ compression principled instead
+    of heuristic.  Cost: one tiny all-gather per leaf, no global sort.
+    """
+    per_leaf = tree_summaries(
+        grads, T, mesh=mesh, axis_names=axis_names, magnitude=True, device=device
+    )
+    hs = list(per_leaf.values())
+    merged = merge_list(hs, max(h.sizes.shape[-1] for h in hs))
+    b = merged.boundaries  # q made where it is used: no host-to-device copy
+    return quantile(merged, torch.full((), q, dtype=torch.float32, device=b.device))
 
 
 @dataclass
@@ -81,17 +155,7 @@ class StragglerDetector:
         for h in hosts:
             v = np.asarray(self._times[h], dtype=np.float32)
             hs.append(build_exact(v, min(self.T, v.shape[0]), device=self.device))
-        T_max = max(h.sizes.shape[-1] for h in hs)
-        bs, ss = [], []
-        for h in hs:
-            pad = T_max - h.sizes.shape[-1]
-            bs.append(torch.cat([h.boundaries, h.boundaries[-1:].repeat(pad)]))
-            ss.append(
-                torch.cat(
-                    [h.sizes, torch.zeros((pad,), dtype=h.sizes.dtype, device=h.sizes.device)]
-                )
-            )
-        merged = merge(Histogram(torch.stack(bs), torch.stack(ss)), T_max)
+        merged = merge_list(hs, max(h.sizes.shape[-1] for h in hs))
         cut = float(quantile(merged, np.float32(self.quantile_q)))
         flagged = [
             h

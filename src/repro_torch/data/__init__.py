@@ -1,0 +1,4 @@
+"""The port's data plane (``repro.data`` on PyTorch)."""
+from repro_torch.data.pipeline import LengthBucketer, SyntheticLM
+
+__all__ = ["LengthBucketer", "SyntheticLM"]

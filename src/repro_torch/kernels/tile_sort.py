@@ -165,7 +165,8 @@ def summarize_rows(x: torch.Tensor, ns, num_buckets: int) -> torch.Tensor:
     keys = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     _row_sort(x, keys, _KEYS, None)
     rows, width = keys.shape
-    ns_dev = torch.as_tensor(ns.astype(np.int32)).to(x.device)
+    # does not wait for the stream: CUDA stages pageable host memory first
+    ns_dev = torch.as_tensor(ns.astype(np.int32)).to(x.device, non_blocking=True)
     out = torch.empty((rows, num_buckets + 1), dtype=x.dtype, device=x.device)
     lib = _lib.library("tile_sort")
     err = lib.hk_row_gather(

@@ -461,3 +461,110 @@ def test_cuda_primary_replica_promote_cycle(cuda, tmp_path):
         svc.record("a", 6, rng.normal(size=800).astype(np.float32))
     for s in (rep, cpu, svc):
         s.close()
+
+
+@pytest.fixture
+def nccl_world_1(cuda, tmp_path):
+    """An NCCL process group of one rank on the card (a FileStore
+    rendezvous): NCCL puts no two ranks on one card, so the multi-rank
+    cases run on gloo in tests/test_torch_distributed.py."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_distributed_world_1_bit_equal_to_cpu(cuda, nccl_world_1):
+    """distributed_histogram, the hierarchical merge (tile rows resident,
+    a long device-level merge) and tensor_histogram_in_step on an NCCL
+    mesh of one card, bit-equal to the world-1 composition on the CPU."""
+    from repro_torch.core import (
+        Histogram, distributed_histogram, distributed_histogram_hierarchical,
+        hierarchical_device_summary, local_summarize, merge, tensor_histogram_in_step,
+    )
+    from repro_torch.launch.mesh import make_mesh
+
+    x = np.random.default_rng(15).gumbel(size=(1 << 20) + 123).astype(np.float32)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(cuda)
+    one = lambda h, beta: merge(Histogram(h.boundaries[None], h.sizes[None]), beta)
+    mesh = make_mesh((1,), ("data",))
+    pods = make_mesh((1, 1), ("pod", "data"))
+    kernels.reset_launches()
+    got = [
+        distributed_histogram(xg, 1024, 64, mesh),
+        distributed_histogram_hierarchical(xg, pods, tile_size=1024, T_tile=128, T_device=512, T_pod=256, beta=64),
+        tensor_histogram_in_step(xg, 256, 32, mesh, ("data",)),
+    ]
+    launches = kernels.reset_launches()
+    want = [
+        one(local_summarize(xc, 1024), 64),
+        one(one(hierarchical_device_summary(xc, 1024, 128, 512), 256), 64),
+        one(local_summarize(xc, 256), 32),
+    ]
+    for g, w in zip(got, want):
+        assert g.boundaries.device.type == "cuda"
+        assert torch.equal(g.boundaries.cpu(), w.boundaries) and torch.equal(g.sizes.cpu(), w.sizes)
+    assert launches["tile_sort"] >= 3 and launches["sort_kv"] >= 1 and launches["merge_cut"] >= 5, launches
+
+
+def grad_leaves(cuda, seed: int = 16):
+    """40 leaves of seeded gradients (40 × 257 boundaries: a long merge)."""
+    rng = np.random.default_rng(seed)
+    tree = {f"layer{i:02d}": (rng.standard_t(4, size=(96, 70)) * 10.0 ** rng.uniform(-3, 0)).astype(np.float32)
+            for i in range(40)}
+    return {k: torch.from_numpy(v) for k, v in tree.items()}, {k: torch.from_numpy(v).to(cuda) for k, v in tree.items()}
+
+
+def test_cuda_training_plane_runs_without_host_sync_and_matches_cpu(cuda):
+    """grad_quantile, quantile clipping, compression and an AdamW step on
+    the card call nothing that waits for the device (sync debug mode
+    "error"); threshold, clipped and split gradients bit-equal to the CPU,
+    the step close to it."""
+    from repro_torch.core.telemetry import grad_quantile
+    from repro_torch.optim import (
+        CompressionConfig, OptimizerConfig, adamw_update, clip_grads, compress_grads,
+        init_opt_state, init_residual,
+    )
+
+    cpu, gpu = grad_leaves(cuda)
+    cfg = OptimizerConfig(clip_mode="quantile", clip_q=0.99, clip_hist_T=256, peak_lr=1e-3, warmup_steps=2)
+    ccfg = CompressionConfig(enabled=True, rho=0.01, hist_T=256)
+    runs = {}
+    for name, g in (("cpu", cpu), ("gpu", gpu)):
+        grad_quantile(g, 0.99, 256)  # builds the kernels before the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            thr = grad_quantile(g, 0.99, 256)
+            clipped, m = clip_grads(g, cfg)
+            params, state, _ = adamw_update(clipped, init_opt_state(g, cfg), g, cfg)
+            sparse, resid, cm = compress_grads(g, init_residual(g), ccfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs[name] = (thr, clipped, params, sparse, resid, cm["compress_threshold"])
+    (t0, c0, p0, s0, r0, ct0), (t1, c1, p1, s1, r1, ct1) = runs["cpu"], runs["gpu"]
+    assert t1.device.type == "cuda" and t1.dim() == 0
+    assert torch.equal(t1.cpu(), t0) and torch.equal(ct1.cpu(), ct0)
+    for k in cpu:
+        assert torch.equal(c1[k].cpu(), c0[k]) and torch.equal(s1[k].cpu(), s0[k]) and torch.equal(r1[k].cpu(), r0[k])
+        torch.testing.assert_close(p1[k].cpu(), p0[k], rtol=1e-6, atol=1e-7)
+
+
+def test_cuda_length_bucketer_bit_equal_to_cpu(cuda):
+    from repro_torch.data import LengthBucketer, SyntheticLM
+
+    data = SyntheticLM(vocab_size=1000, seq_len=2048, global_batch=1, seed=17)
+    rng = np.random.default_rng(17)
+    shards = [data.doc_lengths(rng, 1 << 16) for _ in range(64)]  # 64 × 257: a long merge
+    kernels.reset_launches()
+    got = LengthBucketer(8, 256).fit(shards)
+    launches = kernels.reset_launches()
+    want = LengthBucketer(8, 256, device="cpu").fit(shards)
+    assert got.merged_.boundaries.device.type == "cuda"
+    assert got.boundaries_.tobytes() == want.boundaries_.tobytes()
+    assert torch.equal(got.merged_.sizes.cpu(), want.merged_.sizes)
+    assert launches["tile_sort"] == 64 and launches["sort_kv"] == 1 and launches["merge_cut"] == 1, launches

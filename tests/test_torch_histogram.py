@@ -76,6 +76,8 @@ def test_import_gate_in_a_fresh_interpreter():
         "import repro_torch.kernels; import repro_torch.convert; "
         "import repro_torch.serve; import repro_torch.core.telemetry; "
         "import repro_torch.core.replication; "
+        "import repro_torch.core.distributed, repro_torch.launch.mesh, "
+        "repro_torch.optim, repro_torch.data; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "from repro_torch.kernels import _lib; "
