@@ -74,24 +74,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    to a CPU fit; every call's device ms from CUDA events, the all-gather's,
    and the device-level merge (Q = 1, long) split into its kv sort and its
    scan and cut;
+10. model serving (``repro_torch.models``, ``serve.Engine``,
+   ``launch.serve``; before phase 7 too) at Qwen3-8B's full width and
+   depth (36 layers, d 4096, 8.19e9 float32 parameters from a seeded
+   generator on the card, bfloat16 compute): ``generate`` of 4 ragged
+   prompts (37–512 tokens, 32 new each) and of one alone, prefill and a
+   decode step timed and traced; decode against prefill (float32 and
+   bfloat16); bfloat16 logits against float32; the smoke configs of
+   qwen3-8b and gemma2-9b on the card against the CPU; ``calibrate`` of
+   4 × (2, 512) tokens (16.8 M |hidden| values: each batch's summary, the
+   row sort, bit-equal to the CPU, the merge to the plain merge, the clip
+   within its rank bound of an exact sort); the serve launcher at full
+   width with a metrics sidecar and a replica in ``build/serve-*``
+   (removed after), the replica's answer bit-equal to the primary's; the
+   phase's peak device memory;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6, 8 and 9, in each regime that holds it: device µs a call by
+   phases 3–6 and 8–10, in each regime that holds it: device µs a call by
    item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
 then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5, 6, 8 and 9 are the main paths: each is run with the launch
-counts set to 0 just before it and read just after, and fails unless every
-kernel of its path was launched (phase 9: the row sort, the kv sort and
-the merge); the run fails unless each kernel was launched on the five
-together (the kv sort only sorts merges too long for one block: the log
-analytics path's T=2048 window merges and phase 9's merges of many
-summaries).
+Phases 3, 5, 6, 8, 9 and 10 are the main paths: each is run with the
+launch counts set to 0 just before it and read just after, and fails
+unless every kernel of its path was launched (phase 9: the row sort, the
+kv sort and the merge; phase 10: the row sort and the merge, counted over
+``calibrate`` and the launcher); the run fails unless each kernel was
+launched on the six together (the kv sort only sorts merges too long for
+one block: the log analytics path's T=2048 window merges and phase 9's
+merges of many summaries).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Writes nothing outside ``build/`` (the kernel build, the merge shapes,
-phase 8's service directories and phase 9's rendezvous, removed at their
-ends).
+phase 8's and phase 10's service directories and phase 9's rendezvous,
+removed at their ends).
 """
 from __future__ import annotations
 
@@ -1807,6 +1822,318 @@ def distributed_plane(dev, n_log2: int = 28, n_small_log2: int = 22) -> tuple[di
     return launches, res
 
 
+BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 dense tensor-core rate (NVIDIA data sheet)
+# phase 10's tolerances, set from the dtypes before the first run:
+# - float32 decode against prefill: the reference test's own (tests/test_models.py);
+F32_STEP_TOL = 2e-3
+# - float32 card against CPU at smoke width: reduction orders differ, ~1e-6 of
+#   logits near 1 measured on the CPU against XLA; 100x that;
+F32_TOL = 1e-4
+# - bfloat16 against float32 (and bf16 decode against bf16 prefill): each
+#   rounding to bf16 errs by up to 2^-9 relative; some 7 roundings a layer
+#   over 36 layers add up as a random walk to sqrt(252) * 2^-9 ~ 3 % of the
+#   residual stream, so rms(diff) <= 0.05 rms(f32 logits) and, over ~6e5
+#   logits (5 sigma), max |diff| <= 0.25 rms(f32 logits).
+BF16_RMS_TOL, BF16_MAX_TOL = 0.05, 0.25
+
+
+def rms(x) -> float:
+    return float(x.double().pow(2).mean().sqrt())
+
+
+def forced_greedy(cfg, params, prompts, want, max_seq: int, dev, margin: float) -> tuple[int, int]:
+    """Teacher-force ``params`` on ``dev`` with the tokens ``want`` (another
+    run's greedy output); at each step its argmax must be the wanted token
+    wherever its top-2 margin exceeds ``margin``.  Returns (steps checked,
+    steps whose margin was too small to judge)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    B, L = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((B, L), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    checked = unsure = 0
+    logits, cache = prefill(cfg, params, {"tokens": toks}, init_cache(cfg, B, max_seq, torch.float32, dev))
+    for step in range(max(len(w) - len(p) for w, p in zip(want, prompts))):
+        last = logits[:, -1].float().cpu()
+        top = torch.topk(last, 2).values
+        fed = np.zeros((B, 1), np.int32)
+        for i, (w, p) in enumerate(zip(want, prompts)):
+            if step < len(w) - len(p):
+                fed[i, 0] = int(w[len(p) + step])
+                if float(top[i, 0] - top[i, 1]) > margin:
+                    assert int(torch.argmax(last[i])) == fed[i, 0], (i, step)
+                    checked += 1
+                else:
+                    unsure += 1
+        logits, cache = decode_step(cfg, params, cache, fed, L + step)
+    return checked, unsure
+
+
+def smoke_card_vs_cpu(dev, arch: str) -> dict:
+    """Phase 10e: the smoke config of ``arch`` (float32) on the card against
+    its CPU run, same parameters: hidden, prefill and decode logits within
+    ``F32_TOL``, greedy tokens teacher-forced under the margin rule."""
+    import torch
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import decode_step, forward_hidden, init_cache, init_model, prefill
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    cfg = smoke(get_config(arch))
+    cpu = init_model(cfg, torch.Generator().manual_seed(SEED))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+    runs = {}
+    for name, p, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        h, _ = forward_hidden(cfg, p, {"tokens": toks[:, :64]})
+        lp, cache = prefill(cfg, p, {"tokens": toks[:, :64]}, init_cache(cfg, 2, 72, torch.float32, d))
+        ld, _ = decode_step(cfg, p, cache, toks[:, 64:], 64)
+        runs[name] = [t.cpu() for t in (h, lp, ld)]
+    err = max(max_abs(a, b) for a, b in zip(runs["gpu"], runs["cpu"]))
+    for a, b in zip(runs["gpu"], runs["cpu"]):
+        torch.testing.assert_close(a, b, atol=F32_TOL, rtol=F32_TOL)
+    prompts = [toks[0, :n] for n in (9, 33, 64)]
+    scfg = ServeConfig(max_seq=80, max_new_tokens=12)
+    want = Engine(cfg, cpu, scfg, device="cpu").generate(prompts)
+    got = Engine(cfg, gpu, scfg, device=dev).generate(prompts)
+    checked, unsure = forced_greedy(cfg, gpu, prompts, want, scfg.max_seq, dev, 2 * F32_TOL)
+    return {"max_abs_err": err, "greedy_checked": checked, "greedy_unsure": unsure,
+            "generate_equal": all(np.array_equal(a, b) for a, b in zip(got, want))}
+
+
+def model_serving(dev) -> tuple[dict, dict]:
+    """Phase 10, the model-serving path (``repro_torch.models``,
+    ``serve.Engine``, ``launch.serve``) at Qwen3-8B's full width and depth:
+
+    a. ``init_model`` (float32, 8.19e9 parameters, a seeded generator on
+       the card) and an ``Engine`` (its bfloat16 copy of the block weights);
+    b. ``generate`` of 4 ragged prompts (37, 128, 301, 512 tokens; 32 new
+       each, greedy, float32 KV cache of 576), then of the 512 alone;
+       prefill and a decode step timed with CUDA events, the batch traced;
+    c. ``prefill(x[:257])`` against ``prefill(x[:256])`` + ``decode_step``,
+       B = 2, in float32 and in bfloat16;
+    d. the batch's prefill logits in bfloat16 against float32 (the same
+       parameters), and the greedy first tokens under the margin rule;
+    e. the smoke configs of qwen3-8b and gemma2-9b, card against CPU;
+    f. ``calibrate`` of 4 batches of (2, 512) tokens, q = 0.999, T = 512:
+       each summary bit-equal to its CPU run, the merge and the clip to the
+       plain merge's, the clip's rank within the bound of an exact sort of
+       all 16.8 M values, and the row sort and the merge launched;
+    g. ``launch.serve.main`` at full width with a metrics sidecar and a
+       replica (``build/serve-*``, removed after): the pushed update and
+       the replica's answer printed, the replica's bit-equal to the
+       primary's.
+
+    The launch counts are those of f's ``calibrate`` and g's launcher.
+    Returns them and the measurements."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.histogram import build_exact, merge_list, quantile
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import decode_step, init_cache, init_model, prefill
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.zeros(1, device=dev)  # the allocator's stats exist once it has allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    res, ms, laps = {}, {}, {}
+
+    def lap(name: str) -> None:  # wall seconds of each step of the phase
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # a. the model
+    cfg = get_config("qwen3-8b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params, ms["init"], _ = event_call(lambda: init_model(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    n_params = sum(t.numel() for t in leaves(params))
+    scfg = ServeConfig(max_seq=576, max_new_tokens=32)
+    eng, ms["engine_copy"], _ = event_call(lambda: Engine(cfg, params, scfg, device=dev))
+    blk = sum(t.numel() for t in leaves(eng._run["blocks"]) if t.dtype == torch.bfloat16)
+    assert n_params == cfg.param_count() + cfg.d_model * (2 * cfg.repeats + 1) + 2 * cfg.head_dim * cfg.repeats
+
+    lap("a")
+    # b. generate: the batch, then its longest prompt alone
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in (37, 128, 301, 512)]
+    outs, gen_ms, gen_wall = event_call(lambda: eng.generate(prompts))
+    alone, one_ms, one_wall = event_call(lambda: eng.generate(prompts[-1:]))
+    new = [len(o) - len(p) for o, p in zip(outs, prompts)]
+    for o, p in zip(outs + alone, prompts + prompts[-1:]):
+        assert len(p) < len(o) <= len(p) + scfg.max_new_tokens and np.array_equal(o[:len(p)], p)
+        assert int(o.min()) >= 0 and int(o.max()) < cfg.vocab_size
+    padded, _ = eng._pad_batch(prompts)
+    B, L = padded.shape
+    cache = init_cache(cfg, B, scfg.max_seq, torch.float32, dev)
+    ms["prefill"] = cuda_ms(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), reps=3)
+    logits16, cache = prefill(cfg, eng._run, {"tokens": padded}, cache)
+    tok = torch.argmax(logits16[:, -1], -1, keepdim=True).to(torch.int32)
+    ms["decode_step"] = cuda_ms(lambda: decode_step(cfg, eng._run, cache, tok, L), reps=10)
+    lap("b untraced")
+    # a trace of a whole generate holds ~1.7e5 launches and takes minutes to read:
+    # trace its two parts, one prefill and one decode step
+    res["traced"] = {
+        "prefill": device_breakdown(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), retries=2),
+        "decode_step": device_breakdown(lambda: decode_step(cfg, eng._run, cache, tok, L), retries=2),
+    }
+    del cache
+    pre, dec = (res["traced"][k]["device_ms"] for k in ("prefill", "decode_step"))
+    steps = max(new) - 1  # decode steps of the batch's generate
+    res["generate_idle_share_derived"] = 1.0 - (pre + steps * dec) / gen_wall
+    V, d = cfg.vocab_size, cfg.d_model
+    attn_f32 = 2 * 2 * B * cfg.num_heads * L * L * cfg.head_dim * cfg.repeats  # QK and PV, unmasked
+    res["bounds_ms"] = {
+        "prefill": max(2 * blk * B * L / BF16_OPS_PER_S + (attn_f32 + 2 * B * V * d) / F32_OPS_PER_S,
+                       2 * blk / HBM_BYTES_PER_S) * 1e3,
+        "decode_step": (2 * blk + 4 * V * d + 4 * 2 * cfg.repeats * B * scfg.max_seq * cfg.num_kv_heads
+                        * cfg.head_dim) / HBM_BYTES_PER_S * 1e3,
+    }
+    res["generate"] = {
+        "batch_ms": gen_ms, "batch_wall_ms": gen_wall, "new_tokens": new,
+        "tokens_per_s": sum(new) / (gen_wall / 1e3),
+        "alone_ms": one_ms, "alone_tokens_per_s": (len(alone[0]) - len(prompts[-1])) / (one_wall / 1e3),
+        "longest_alone_equal_batched": bool(np.array_equal(alone[0], outs[-1])),
+    }
+    lap("b traced")
+    # c. decode against prefill at full width, float32 and bfloat16
+    x = rng.integers(2, cfg.vocab_size, (2, 257)).astype(np.int32)
+    step_err = {}
+    for name, c, run in (("float32", cfg32, params), ("bfloat16", cfg, eng._run)):
+        full, _ = prefill(c, run, {"tokens": x}, init_cache(c, 2, 264, torch.float32, dev))
+        _, kv = prefill(c, run, {"tokens": x[:, :256]}, init_cache(c, 2, 264, torch.float32, dev))
+        step, _ = decode_step(c, run, kv, x[:, 256:], 256)
+        del kv, run  # the launcher in g needs the memory of this model back
+        assert bool(torch.isfinite(full).all())
+        diff, scale = (step - full).abs(), rms(full)
+        step_err[name] = {"max_abs": float(diff.max()), "rms_diff_over_rms": rms(step - full) / scale,
+                          "max_over_rms": float(diff.max()) / scale}
+        if name == "float32":
+            torch.testing.assert_close(step, full, rtol=F32_STEP_TOL, atol=F32_STEP_TOL)
+        else:
+            assert step_err[name]["rms_diff_over_rms"] <= BF16_RMS_TOL, step_err
+            assert step_err[name]["max_over_rms"] <= BF16_MAX_TOL, step_err
+    res["decode_vs_prefill"] = step_err
+
+    lap("c")
+    # d. bfloat16 against float32 on the batch
+    logits32, _ = prefill(cfg32, params, {"tokens": padded}, init_cache(cfg32, B, L, torch.float32, dev))
+    l16, l32 = logits16[:, -1].float(), logits32[:, -1]
+    scale = rms(l32)
+    top = torch.topk(l32, 2).values
+    judged = [i for i in range(B) if float(top[i, 0] - top[i, 1]) > BF16_MAX_TOL * scale]
+    for i in judged:
+        assert int(torch.argmax(l16[i])) == int(torch.argmax(l32[i])), i
+    res["bf16_vs_f32"] = {"rms_diff_over_rms": rms(l16 - l32) / scale,
+                          "max_over_rms": float((l16 - l32).abs().max()) / scale,
+                          "rms_f32_logits": scale, "first_tokens_judged": len(judged),
+                          "first_tokens_equal": int(sum(int(torch.argmax(l16[i]) == torch.argmax(l32[i]))
+                                                        for i in range(B)))}
+    assert res["bf16_vs_f32"]["rms_diff_over_rms"] <= BF16_RMS_TOL, res["bf16_vs_f32"]
+    assert res["bf16_vs_f32"]["max_over_rms"] <= BF16_MAX_TOL, res["bf16_vs_f32"]
+    del logits16, logits32
+
+    lap("d")
+    # e. card against CPU at smoke width
+    res["smoke_card_vs_cpu"] = {a: smoke_card_vs_cpu(dev, a) for a in ("qwen3-8b", "gemma2-9b")}
+
+    lap("e")
+    # f. calibrate
+    T_cal, q = 512, 0.999
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)} for _ in range(4)]
+    kernels.reset_launches()
+    calib, ms["calibrate"], _ = event_call(lambda: eng.calibrate(batches, q=q, T=T_cal))
+    launches = kernels.reset_launches()
+    assert launches["tile_sort"] >= 4 and launches["merge_cut"] >= 1, launches
+    values = [eng.calibration_values(b) for b in batches]
+    ms["calibration_forward"] = cuda_ms(lambda: eng.calibration_values(batches[0]), reps=3)
+    cpu_sums = []
+    for v in values:
+        card, host = build_exact(v, T_cal), build_exact(v.cpu(), T_cal)
+        assert torch.equal(card.boundaries.cpu(), host.boundaries) and torch.equal(card.sizes.cpu(), host.sizes)
+        cpu_sums.append(host)
+    sums = [build_exact(v, T_cal) for v in values]
+    merged, plain = merge_list(sums, 254), merge_list(cpu_sums, 254)
+    assert torch.equal(merged.boundaries.cpu(), plain.boundaries) and torch.equal(merged.sizes.cpu(), plain.sizes)
+    assert calib["clip"] == float(quantile(plain, np.float32(q))), calib
+    N = sum(v.numel() for v in values)
+    assert calib["n_calibration_values"] == N == 4 * 2 * 512 * d
+    allv = torch.cat(values)
+    lt, le = int((allv < calib["clip"]).sum()), int((allv <= calib["clip"]).sum())
+    off = max(0.0, lt - q * N, q * N - le)
+    assert off <= calib["rank_error_bound"], (off, calib)
+    res["calibrate"] = {**calib, "rank_off": off, "launches": launches}
+    # the path's two kernels at its shapes, beside torch.sort and their bounds
+    n = values[0].numel()
+    res["calibrate_kernels"] = {
+        "row_sort_ms": cuda_ms(lambda: build_exact(values[0], T_cal), reps=10),
+        "torch_sort_ms": cuda_ms(lambda: torch.sort(values[0]), reps=10),
+        "row_sort_bound_ms": bound_ms(4.0 * (n + T_cal + 1), 0)[0],
+        "merge_ms": cuda_ms(lambda: merge_list(sums, 254), reps=20),
+        "merge_bound_ms": merge_bound_ms(1, len(sums), T_cal + 1, 254),
+        "shapes": {"row_sort": [1, n], "merge": [1, len(sums), T_cal + 1, 254]},
+    }
+    del allv, values, sums, merged
+
+    lap("f")
+    # g. the launcher at full width
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve-", dir=os.path.join(ROOT, "build"))
+    try:
+        out = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(out):
+            run, ms["launcher"], _ = event_call(lambda: launcher.main([
+                "--arch", "qwen3-8b", "--device", str(dev), "--batch", "4", "--prompt-len", "64", "--max-new-tokens", "16",
+                "--metrics-dir", os.path.join(root, "primary"), "--replicate-to", os.path.join(root, "replica"),
+            ]))
+        served = kernels.reset_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    printed = out.getvalue()
+    for ln in printed.splitlines():
+        log(f"launcher: {ln}" if not ln.startswith("req") else f"launcher: {ln[:120]}")
+    assert "pushed update:" in printed and "replica answer:" in printed, printed
+    assert run["update"] is not None and not run["replica"].degraded
+    assert same_answer(run["primary"], run["replica"]), (run["primary"], run["replica"])
+    launches = {k: launches[k] + served[k] for k in launches}
+    res["launcher_launches"] = served
+    lap("g")
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    assert peak < total, (peak, total)
+    res.update(ms=ms, laps_s=laps, params=n_params, block_weights_bf16=blk, peak_memory_bytes=peak, card_memory_bytes=total,
+               path_s=time.perf_counter() - t_phase)
+    log(f"model serving: qwen3-8b {n_params} parameters; {json.dumps(ms)}; bounds {json.dumps(res['bounds_ms'])}")
+    log(f"model serving: generate {json.dumps(res['generate'])}")
+    log(f"model serving: decode vs prefill {json.dumps(step_err)}; bf16 vs f32 {json.dumps(res['bf16_vs_f32'])}; "
+        f"smoke card vs CPU {json.dumps(res['smoke_card_vs_cpu'])}")
+    log(f"model serving: calibrate {json.dumps(res['calibrate'])}; its kernels "
+        f"{json.dumps(res['calibrate_kernels'])}; launches {launches}")
+    log(f"model serving: peak memory {peak} of {total} bytes (torch.cuda.max_memory_allocated); "
+        f"traced {json.dumps(res['traced'])}; generate's idle share from them "
+        f"{res['generate_idle_share_derived']:.3f}; phase {res['path_s']:.1f} s, "
+        f"by step {json.dumps(laps)}")
+    return launches, res
+
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -1816,7 +2143,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6, 8 and 9: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6 and 8-10: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -1896,6 +2223,7 @@ def main() -> int:
         tenants = phase("6 registry", lambda: registry(dev))
         serving = phase("8 service", lambda: service(dev))
         plane = phase("9 distributed", lambda: distributed_plane(dev))
+        models = phase("10 model serving", lambda: model_serving(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
@@ -1903,7 +2231,7 @@ def main() -> int:
     launches, times = main_path
     meas["bucket_count"] = big.pop("bucket_count")
     per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0],
-                "distributed": plane[0]}
+                "distributed": plane[0], "model_serving": models[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -1923,6 +2251,7 @@ def main() -> int:
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
                     "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "distributed": plane[1],
+                    "model_serving": models[1],
                     "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())

@@ -7,13 +7,17 @@
   (row sort, stable kv sort, batched merge, bucket count) and their plain
   versions;
 - :mod:`repro_torch.serve` — the serving plane (``HistogramService``,
-  standing-query subscriptions);
-- :mod:`repro_torch.launch` — the ``torch.distributed`` device mesh;
+  standing-query subscriptions) and the model-serving ``Engine``;
+- :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the dense
+  model stack and the model configs;
+- :mod:`repro_torch.launch` — the ``torch.distributed`` device mesh and
+  the serve launcher;
 - :mod:`repro_torch.optim` — AdamW with quantile clipping, and gradient
   compression, over trees of tensors (:mod:`repro_torch.tree`);
 - :mod:`repro_torch.data` — the synthetic LM stream and the length
   bucketer;
-- :mod:`repro_torch.convert` — state carried across from the JAX package.
+- :mod:`repro_torch.convert` — state and parameters carried across from
+  the JAX package.
 
 Imports ``torch`` and ``numpy``; never ``jax``, and nothing of ``repro``.
 """

@@ -11,6 +11,9 @@ its ``save`` writes, which adds the store configuration).
 arrays of the reference's ``TenantRegistry.save`` container.
 :func:`opt_state_from_reference` takes the reference's optimizer state
 (``repro.optim.init_opt_state``/``adamw_update``) as NumPy arrays.
+:func:`params_from_reference` and :func:`cache_from_reference` take a
+model's parameter tree (``repro.models.init_model``) and its decode cache
+(``init_cache``, ``prefill``, ``decode_step``), leaves as NumPy arrays.
 """
 from __future__ import annotations
 
@@ -23,7 +26,13 @@ from repro_torch.core.tenant import TenantRegistry
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.tree import tree_map
 
-__all__ = ["opt_state_from_reference", "registry_from_reference", "store_from_reference"]
+__all__ = [
+    "cache_from_reference",
+    "opt_state_from_reference",
+    "params_from_reference",
+    "registry_from_reference",
+    "store_from_reference",
+]
 
 
 def _config(meta: dict, arrays, overrides: dict) -> dict:
@@ -106,3 +115,18 @@ def opt_state_from_reference(state: dict, device=None) -> dict:
         "v": tree_map(lambda a: _leaf(a, device), state["v"]),
         "step": _leaf(state["step"], device),
     }
+
+
+def params_from_reference(params, device=None):
+    """The reference's model parameter tree (``init_model(cfg, key)[0]``,
+    leaves as NumPy arrays) as the port's, bit for bit and in the same
+    layout, on ``device`` (``None`` → ``"cuda"``); bfloat16 goes across
+    through its bits."""
+    return tree_map(lambda a: _leaf(a, device), params)
+
+
+def cache_from_reference(cache, device=None):
+    """The reference's decode cache (the tuple of ``init_cache``,
+    ``prefill`` or ``decode_step``, leaves as NumPy arrays) as the port's,
+    bit for bit, on ``device`` (``None`` → ``"cuda"``)."""
+    return tree_map(lambda a: _leaf(a, device), cache)

@@ -1,0 +1,116 @@
+"""Grouped-query attention with the dense archs' variants.
+
+Port of ``repro.models.attention``: GQA/MQA/MHA (kv groups), RoPE,
+qk-norm (qwen3), tanh logit softcapping and sliding-window local layers
+(gemma-2), and single-token decode against a KV cache.  Weights are
+head-major, ``(d, H, hd)``, as in the reference.
+
+The KV cache is written in place: at ``[0, S)`` by :func:`prefill_attention`
+and at ``position`` by :func:`decode_attention_step` (the reference's
+``dynamic_update_slice`` under ``donate_argnums``, start clamped to
+``Smax - 1`` as XLA clamps it).  Both return the cache, as the reference
+does.  Cross-attention (whisper) waits for its slice (ROADMAP Queue 1
+item 7c).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import (
+    Init,
+    apply_rope,
+    cast,
+    chunked_attention,
+    decode_attention,
+    rms_norm,
+)
+
+
+def init_attention(cfg, rng: Init) -> dict:
+    d, Hq, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    params = {
+        "wq": rng.dense((d, Hq, hd)),
+        "wk": rng.dense((d, Hkv, hd)),
+        "wv": rng.dense((d, Hkv, hd)),
+        "wo": rng.dense((Hq, hd, d), fan_in=Hq * hd),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = rng.zeros((hd,))
+        params["k_norm"] = rng.zeros((hd,))
+    return params
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")``."""
+    d, h, k = w.shape
+    return (x @ cast(w, x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")``."""
+    h, k, d = w.shape
+    return o.flatten(-2) @ cast(w, o.dtype).reshape(h * k, d)
+
+
+def _project_qkv(cfg, p, x, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _window(cfg, kind: str) -> int | None:
+    return cfg.sliding_window if kind == "local" else None
+
+
+def _attend(cfg, p, x, positions, kind: str):
+    """Causal attention over the whole sequence → ``(y, k, v)``."""
+    B, S, _ = x.shape
+    Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = chunked_attention(
+        q.reshape(B, S, Hkv, G, cfg.head_dim), k, v, causal=True,
+        window=_window(cfg, kind), logit_cap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
+    )
+    return _out(out.reshape(B, S, cfg.num_heads, cfg.head_dim), p["wo"]), k, v
+
+
+def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *, kind: str = "global") -> torch.Tensor:
+    """Full-sequence causal attention (train / eval).  x: ``(B, S, d)``."""
+    return _attend(cfg, p, x, positions, kind)[0]
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> dict:
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_attention(cfg, p, x, positions, cache, *, kind: str = "global"):
+    """Full-sequence attention that also fills the KV cache ``[0, S)``."""
+    y, k, v = _attend(cfg, p, x, positions, kind)
+    S = x.shape[1]
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    return y, cache
+
+
+def decode_attention_step(cfg, p, x, position: int, cache: dict, *, kind: str = "global"):
+    """One-token decode: project, write the cache at ``position``, attend.
+    x: ``(B, 1, d)``."""
+    B = x.shape[0]
+    Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    pos = torch.full((1,), position, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos)
+    slot = min(max(position, 0), cache["k"].shape[1] - 1)  # XLA clamps the start
+    cache["k"][:, slot:slot + 1] = k
+    cache["v"][:, slot:slot + 1] = v
+    out = decode_attention(
+        q.reshape(B, 1, Hkv, G, cfg.head_dim), cache["k"], cache["v"], position,
+        window=_window(cfg, kind), logit_cap=cfg.attn_softcap,
+    ).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    return _out(out, p["wo"]), cache

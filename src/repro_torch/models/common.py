@@ -1,0 +1,196 @@
+"""Shared model primitives: the initializer, norms, RoPE, the attention cores.
+
+Port of ``repro.models.common`` on PyTorch.  Parameters are plain nested
+dicts (and lists) of tensors, as in the reference; the logical sharding
+specs are not carried over (sharding comes with the training slice).
+
+The attention core computes in float32 whatever the compute dtype
+(logits, probabilities and the PV product), as the reference does, and
+masks with ``-1e30``, not ``-inf``.  It is plain torch: the reference's is
+plain ``jnp`` outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = Any  # nested dict of tensors
+
+_NEG = -1e30  # the reference's mask fill
+
+
+@dataclasses.dataclass
+class Init:
+    """Sequential parameter initializer over an explicit ``torch.Generator``.
+
+    The same distributions as the reference's ``Init``: ``normal`` draws
+    N(0, 1) in float32 and scales it, ``dense`` is N(0, 1/fan_in), norm
+    gains are zeros.  The draws are the generator's, not
+    ``jax.random``'s: the same seed gives other values than the reference,
+    by design.
+    """
+
+    generator: torch.Generator
+    device: torch.device
+
+    def normal(self, shape, scale, dtype=torch.float32) -> torch.Tensor:
+        x = torch.empty(shape, dtype=torch.float32, device=self.device)
+        x.normal_(generator=self.generator)
+        return x.mul_(float(scale)).to(dtype)
+
+    def dense(self, shape, *, fan_in=None, dtype=torch.float32) -> torch.Tensor:
+        fan_in = fan_in if fan_in is not None else shape[0]
+        return self.normal(shape, 1.0 / np.sqrt(fan_in), dtype)
+
+    def zeros(self, shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def ones(self, shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype, device=self.device)
+
+
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.astype(dtype)`` of the reference: no copy when ``w`` already
+    has it (the engine's compute-dtype copy of the weights)."""
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) · (1 + γ)`` in float32, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + gamma.float())).to(dt)
+
+
+def layer_norm(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * gamma.float() + beta.float()).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (split halves, not interleaved pairs)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: ``(..., S, H, hd)``; positions: broadcastable to ``(..., S)``."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores (float32 inside)
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, Hkv, G, hd)
+    k: torch.Tensor,  # (B, Skv, Hkv, hd)
+    v: torch.Tensor,  # (B, Skv, Hkv, hd)
+    *,
+    causal: bool,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_chunk: int = 512,
+) -> torch.Tensor:
+    """Grouped-query attention, one query chunk at a time.
+
+    Returns ``(B, Sq, Hkv, G, hd)``: query head ``h = kv·G + g`` reads KV
+    head ``kv``.  ``window`` masks keys ``window`` or more positions behind
+    the query; ``logit_cap`` is gemma-2's tanh softcap.  A query length
+    that ``q_chunk`` does not divide is padded and sliced, as the
+    reference does.
+    """
+    B, Sq, Hkv, G, hd = q.shape
+    Skv = k.shape[1]
+    scale = hd**-0.5
+    q_chunk = min(q_chunk, Sq)
+    Sq_orig = Sq
+    pad = (-Sq) % q_chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        Sq = Sq + pad
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for c in range(Sq // q_chunk):
+        qi = q[:, c * q_chunk:(c + 1) * q_chunk]
+        logits = torch.einsum("bckgh,bskh->bkgcs", qi.float(), kf) * scale
+        logits = softcap(logits, logit_cap)
+        q_pos = c * q_chunk + torch.arange(q_chunk, device=q.device)
+        mask = torch.ones((q_chunk, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        logits = torch.where(mask, logits, _NEG)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bkgcs,bskh->bckgh", probs, vf).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :Sq_orig]
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, Hkv, G, hd)
+    k_cache: torch.Tensor,  # (B, Smax, Hkv, hd)
+    v_cache: torch.Tensor,
+    position: int,  # index of the token being produced
+    *,
+    window: int | None = None,
+    logit_cap: float | None = None,
+) -> torch.Tensor:
+    """One query token against the whole ``Smax`` cache, keys masked to
+    ``kv_pos <= position`` (and the window)."""
+    Smax = k_cache.shape[1]
+    hd = q.shape[-1]
+    scale = hd**-0.5
+    logits = torch.einsum("bokgh,bskh->bkgos", q.float(), k_cache.float()) * scale
+    logits = softcap(logits, logit_cap)
+    kv_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)
+    mask = kv_pos <= position
+    if window is not None:
+        mask &= kv_pos > position - window
+    logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgos,bskh->bokgh", probs, v_cache.float())
+    return out.to(q.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)

@@ -1,0 +1,309 @@
+"""Model assembly: pattern-based layer stacks over stacked repeats.
+
+Port of ``repro.models.model`` for the dense layer kinds (``attn+mlp``,
+``local+mlp``, ``global+mlp``): GQA and MHA, qk-norm, attention and final
+softcaps, the sliding window, ``embed_scale`` and tied embeddings.  A model
+is a repeating ``pattern`` of layer kinds whose parameters are stacked over
+``repeats`` on a leading axis; the reference's ``jax.lax.scan`` over
+repeats is a Python loop here, repeat ``r`` then pattern position ``i``,
+in the reference's order.
+
+Entry points, each taking the parameter tree (``init_model``'s, or
+``Model.params()``):
+
+  * ``forward_hidden`` — the forward to the final norm;
+  * ``prefill``        — forward that fills the KV caches, returns the last
+    position's logits;
+  * ``decode_step``    — one token against the caches.
+
+Weights are cast to the compute dtype at each use, as in the reference,
+with no copy where they already have it (``serve.Engine`` holds one
+compute-dtype copy).  The final logits are float32 hidden times the
+float32 unembedding, as in the reference.
+
+The layer kinds ``moe``, ``mamba``, ``rwkv`` and ``cross`` and the vision
+frontend raise ``NotImplementedError`` (ROADMAP Queue 1 item 7c); the
+training loss (``chunked_softmax_xent``) and sharding come with item 7b.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import as_tensor, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import Init, layer_norm, rms_norm, sinusoidal_positions, softcap
+from repro_torch.tree import tree_map
+
+__all__ = [
+    "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "prefill",
+]
+
+_PORTED = {"attn", "local", "global", "mlp"}
+_TODO = "not ported yet (ROADMAP Queue 1 item 7c: the other model families)"
+
+
+def _check(cfg: ModelConfig, batch: dict | None = None) -> None:
+    """Raise on what the port does not run yet: never a fallback."""
+    for kind in cfg.pattern:
+        if not set(kind.split("+")) <= _PORTED:
+            raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is {_TODO}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is {_TODO}")
+    if batch is not None and "patch_embeds" in batch:
+        raise NotImplementedError(f"{cfg.name}: the vision frontend is {_TODO}")
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _parse(kind: str) -> list[str]:
+    return kind.split("+")
+
+
+# ---------------------------------------------------------------------------
+# Norms (rms vs layer norm per config)
+# ---------------------------------------------------------------------------
+
+
+def _init_norm(cfg, rng: Init) -> dict:
+    if cfg.norm_type == "layernorm":
+        return {"g": rng.ones((cfg.d_model,)), "b": rng.zeros((cfg.d_model,))}
+    return {"g": rng.zeros((cfg.d_model,))}
+
+
+def _apply_norm(cfg, p, x):
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p["g"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["g"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def init_layer(cfg: ModelConfig, kind: str, rng: Init) -> dict:
+    params = {"ln1": _init_norm(cfg, rng), "mixer": attn_mod.init_attention(cfg, rng)}
+    params["ln2"] = _init_norm(cfg, rng)
+    params["ffn"] = mlp_mod.init_mlp(cfg, rng, gated=cfg.norm_type != "layernorm")
+    return params
+
+
+def _mixer(kind: str) -> str:
+    return "local" if _parse(kind)[0] == "local" else "global"
+
+
+def _ffn(cfg, p, x):
+    """The block's second half: ``x + mlp(norm(x))``."""
+    return x + mlp_mod.apply_mlp(cfg, p["ffn"], _apply_norm(cfg, p["ln2"], x),
+                                 gated=cfg.norm_type != "layernorm")
+
+
+def apply_layer_train(cfg, kind, p, x, positions):
+    """Pre-norm residual block (train / eval forward)."""
+    x = x + attn_mod.apply_attention(cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), positions, kind=_mixer(kind))
+    return _ffn(cfg, p, x)
+
+
+def _layers(cfg, params, cache=None):
+    """``(kind, layer params, layer cache)`` in the reference's scan order:
+    repeat ``r``, then pattern position ``i``; views of the stacked
+    leaves, so a write to a layer's cache lands in ``cache``."""
+    for r in range(cfg.repeats):
+        for i, kind in enumerate(cfg.pattern):
+            c = None if cache is None else tree_map(lambda t: t[r], cache[i])
+            yield kind, tree_map(lambda t: t[r], params["blocks"][i]), c
+
+
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
+
+
+def _stacked_blocks(cfg, rng: Init) -> list[dict]:
+    """Per pattern position, its ``repeats`` layers stacked on a leading
+    axis, drawn layer by layer (the stack holds one layer more at most)."""
+    blocks = []
+    for kind in cfg.pattern:
+        first = init_layer(cfg, kind, rng)
+        stacked = tree_map(lambda t: t.new_empty((cfg.repeats,) + t.shape), first)
+        tree_map(lambda s, t: s[0].copy_(t), stacked, first)
+        del first
+        for r in range(1, cfg.repeats):
+            tree_map(lambda s, t: s[r].copy_(t), stacked, init_layer(cfg, kind, rng))
+        blocks.append(stacked)
+    return blocks
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *, device=None) -> dict:
+    """The parameter tree in the reference's layout (``embed``,
+    ``blocks[i][...]`` stacked over ``repeats``, ``final_norm``, and
+    ``unembed`` unless embeddings are tied), float32, drawn from
+    ``generator`` (``None`` → seed 0) on ``device`` (``None`` → the
+    generator's device, or the card)."""
+    _check(cfg)
+    if device is None and generator is not None:
+        device = generator.device
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    rng = Init(generator, dev)
+    params = {"embed": rng.normal((cfg.vocab_size, cfg.d_model), 0.02)}
+    params["blocks"] = _stacked_blocks(cfg, rng)
+    params["final_norm"] = _init_norm(cfg, rng)
+    if not cfg.tie_embeddings:
+        params["unembed"] = rng.normal((cfg.vocab_size, cfg.d_model), 0.02)
+    return params
+
+
+class _Tree(torch.nn.Module):
+    """A nested dict of tensors (lists for the blocks) as registered
+    parameters and submodules; :meth:`params` gives the tree back."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for key, node in tree.items():
+            if isinstance(node, dict):
+                self.add_module(key, _Tree(node))
+            elif isinstance(node, list):
+                self.add_module(key, torch.nn.ModuleList(_Tree(c) for c in node))
+            else:
+                self.register_parameter(key, torch.nn.Parameter(node))
+
+    def params(self) -> dict:
+        out = {}
+        for key in self._keys:
+            node = getattr(self, key)
+            if isinstance(node, torch.nn.ModuleList):
+                out[key] = [c.params() for c in node]
+            else:
+                out[key] = node.params() if isinstance(node, _Tree) else node
+        return out
+
+
+class Model(_Tree):
+    """The model as an ``nn.Module``: the parameters of :func:`init_model`
+    (or ``params``, a tree of that layout, e.g. from
+    ``convert.params_from_reference``) registered in the reference's tree
+    layout.  ``flatten_with_path(model.params())`` names them as
+    ``jax.tree_util`` names the reference's tree; the functional entry
+    points take that tree."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None, device=None):
+        _check(cfg)
+        super().__init__(params if params is not None else init_model(cfg, generator, device=device))
+        self.cfg = cfg
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The final hidden states ``(B, S, d)``."""
+        return forward_hidden(self.cfg, self.params(), batch)[0]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _tokens(params, tokens) -> torch.Tensor:
+    return as_tensor(tokens, params["embed"].device).long()
+
+
+def _embed_tokens(cfg, params, tokens):
+    dt = _compute_dtype(cfg)
+    x = params["embed"][_tokens(params, tokens)].to(dt)  # gather, then cast: the same bits
+    if cfg.embed_scale:
+        # √d rounded to the compute dtype first, as the reference's jnp.asarray(√d, dt)
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=dt).item()
+    return x
+
+
+def _positions(S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)
+
+
+def _add_sinusoid(cfg, x):
+    if cfg.use_rope:
+        return x
+    return x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+
+
+def forward_hidden(cfg, params, batch: dict):
+    """Train/eval forward → ``(final hidden (B, S, d), aux dict)``."""
+    _check(cfg, batch)
+    x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
+    positions = _positions(x.shape[1], x.device)
+    for kind, p, _ in _layers(cfg, params):
+        x = apply_layer_train(cfg, kind, p, x, positions)
+    aux = {"moe_load_balance": 0.0, "moe_router_z": 0.0}
+    return _apply_norm(cfg, params["final_norm"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode caches, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> tuple:
+    """Per pattern position, ``{"kv": {"k", "v"}}`` stacked over
+    ``repeats``: ``(repeats, batch, max_seq, kv heads, head_dim)`` zeros on
+    ``device`` (``None`` → the card)."""
+    _check(cfg)
+    dev = resolve_device(device)
+    return tuple(
+        {"kv": tree_map(lambda t: t.expand((cfg.repeats,) + t.shape).clone(),
+                        attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, dev))}
+        for _ in cfg.pattern
+    )
+
+
+def _logits(cfg, params, x):
+    unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return softcap(x.float() @ unemb.float().T, cfg.final_softcap)
+
+
+def _layer_prefill(cfg, kind, p, cache, x, positions):
+    h, _ = attn_mod.prefill_attention(
+        cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), positions, cache["kv"], kind=_mixer(kind)
+    )
+    return _ffn(cfg, p, x + h)
+
+
+def prefill(cfg, params, batch: dict, cache: tuple):
+    """Process the whole prompt, fill the caches at ``[0, S)`` (in place),
+    return ``(last-position logits (B, 1, V), cache)``."""
+    _check(cfg, batch)
+    x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
+    positions = _positions(x.shape[1], x.device)
+    for kind, p, c in _layers(cfg, params, cache):
+        x = _layer_prefill(cfg, kind, p, c, x, positions)
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    return _logits(cfg, params, x), cache
+
+
+def _layer_decode(cfg, kind, p, cache, x, pos: int):
+    h, _ = attn_mod.decode_attention_step(
+        cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), pos, cache["kv"], kind=_mixer(kind)
+    )
+    return _ffn(cfg, p, x + h)
+
+
+def decode_step(cfg, params, cache: tuple, token, pos: int):
+    """token: ``(B, 1)`` ids; pos: the host index of that token →
+    ``(logits (B, 1, V), cache)``, the caches written at ``pos`` in place."""
+    _check(cfg)
+    pos = int(pos)
+    x = _embed_tokens(cfg, params, token)
+    if not cfg.use_rope:
+        i = torch.arange(cfg.d_model // 2, dtype=torch.float32, device=x.device)
+        angle = float(pos) / torch.pow(10000.0, 2 * i / cfg.d_model)
+        x = x + torch.cat([torch.sin(angle), torch.cos(angle)]).to(x.dtype)
+    for kind, p, c in _layers(cfg, params, cache):
+        x = _layer_decode(cfg, kind, p, c, x, pos)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x), cache
+

@@ -1,8 +1,7 @@
 """Crash-recoverable multi-tenant histogram server (the serving plane).
 
-PyTorch port of ``repro.serve.engine.HistogramService``.  It is a module
-of its own because the reference's ``engine.py`` imports the model stack;
-the port's ``Engine`` will import this module.  ``registry_kwargs``
+PyTorch port of ``repro.serve.engine.HistogramService``, in a module of
+its own: the port's ``Engine`` (``serve/engine.py``) does not need it.  ``registry_kwargs``
 (``device`` among them: ``None`` → the card, raising without one,
 ``"cpu"`` → the kernels' plain versions) reach the recovered registry and
 a replica's :class:`~repro_torch.core.replication.Follower`, so ingest,

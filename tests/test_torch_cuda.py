@@ -568,3 +568,81 @@ def test_cuda_length_bucketer_bit_equal_to_cpu(cuda):
     assert got.boundaries_.tobytes() == want.boundaries_.tobytes()
     assert torch.equal(got.merged_.sizes.cpu(), want.merged_.sizes)
     assert launches["tile_sort"] == 64 and launches["sort_kv"] == 1 and launches["merge_cut"] == 1, launches
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b"])
+def test_cuda_model_path_matches_cpu_at_smoke_width(cuda, arch):
+    """forward_hidden, prefill, decode_step and greedy generate on the card
+    against the CPU run of the same parameters (float32; logits within
+    atol=rtol=1e-4, greedy tokens equal teacher-forced wherever the CPU's
+    top-2 margin exceeds 2e-4)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import decode_step, forward_hidden, init_cache, init_model, prefill
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    cfg = smoke(get_config(arch))
+    cpu = init_model(cfg, torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
+    runs = {}
+    with torch.no_grad():
+        for name, p, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, cuda)):
+            h, _ = forward_hidden(cfg, p, {"tokens": toks[:, :40]})
+            lp, cache = prefill(cfg, p, {"tokens": toks[:, :40]}, init_cache(cfg, 2, 48, torch.float32, dev))
+            ld, _ = decode_step(cfg, p, cache, toks[:, 40:], 40)
+            runs[name] = [t.cpu() for t in (h, lp, ld)]
+    for a, b in zip(runs["gpu"], runs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    prompts = [toks[0, :n] for n in (7, 19, 33)]
+    want = Engine(cfg, cpu, ServeConfig(max_seq=48, max_new_tokens=8), device="cpu").generate(prompts)
+    eng = Engine(cfg, gpu, ServeConfig(max_seq=48, max_new_tokens=8))
+    assert eng.device.type == "cuda"
+    got = eng.generate(prompts)
+    # teacher-forced: the card's argmax is the CPU's token wherever the margin allows
+    padded, _ = eng._pad_batch(prompts)
+    L = padded.shape[1]
+    with torch.no_grad():
+        logits, cache = prefill(cfg, gpu, {"tokens": padded}, init_cache(cfg, 3, 48, torch.float32, cuda))
+        for step in range(8):
+            last = logits[:, -1].cpu()
+            top = torch.topk(last, 2).values
+            fed = np.zeros((3, 1), np.int32)
+            for i, (w, p) in enumerate(zip(want, prompts)):
+                if step < len(w) - len(p):
+                    fed[i, 0] = int(w[len(p) + step])
+                    if float(top[i, 0] - top[i, 1]) > 2e-4:
+                        assert int(torch.argmax(last[i])) == fed[i, 0], (i, step)
+            logits, cache = decode_step(cfg, gpu, cache, fed, L + step)
+    assert all(len(g) == len(w) for g, w in zip(got, want))
+
+
+def test_cuda_calibration_summaries_bit_equal_to_cpu(cuda):
+    """Engine.calibrate on the card: each batch's |hidden| summary (the row
+    sort) and their merge (the merge kernel) bit-equal to the plain
+    versions on the same values; the clip is that merge's quantile."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.core.histogram import build_exact, merge_list, quantile
+    from repro_torch.models import init_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = smoke(get_config("qwen3-8b"))
+    eng = Engine(cfg, init_model(cfg, torch.Generator(device=cuda).manual_seed(0)), ServeConfig())
+    rng = np.random.default_rng(1)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)} for _ in range(3)]
+    kernels.reset_launches()
+    out = eng.calibrate(batches, q=0.999, T=256)
+    launches = kernels.reset_launches()
+    assert launches["tile_sort"] >= 3 and launches["merge_cut"] >= 1, launches
+    gpu, cpu = [], []
+    for b in batches:
+        v = eng.calibration_values(b)
+        assert v.device.type == "cuda" and v.shape == (2 * 64 * cfg.d_model,)
+        gpu.append(build_exact(v, 256))
+        cpu.append(build_exact(v.cpu(), 256))
+    for g, c in zip(gpu, cpu):
+        assert torch.equal(g.boundaries.cpu(), c.boundaries) and torch.equal(g.sizes.cpu(), c.sizes)
+    mg, mc = merge_list(gpu, 254), merge_list(cpu, 254)
+    assert torch.equal(mg.boundaries.cpu(), mc.boundaries) and torch.equal(mg.sizes.cpu(), mc.sizes)
+    assert out["clip"] == float(quantile(mc, np.float32(0.999))) > 0
+    assert out["n_calibration_values"] == 3 * 2 * 64 * cfg.d_model

@@ -78,6 +78,8 @@ def test_import_gate_in_a_fresh_interpreter():
         "import repro_torch.core.replication; "
         "import repro_torch.core.distributed, repro_torch.launch.mesh, "
         "repro_torch.optim, repro_torch.data; "
+        "import repro_torch.configs, repro_torch.models, repro_torch.serve.engine, "
+        "repro_torch.launch.serve; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "from repro_torch.kernels import _lib; "

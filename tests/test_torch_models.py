@@ -1,0 +1,287 @@
+"""The port's model stack (``repro_torch.models``, ``repro_torch.configs``)
+against the reference's — the port's mirror of ``tests/test_models.py``
+for the dense families.
+
+Both packages run the same parameters (the reference's ``init_model``,
+carried across bit for bit by ``convert.params_from_reference``) on the
+same seeded NumPy tokens, on the CPU, in float32 (the smoke configs).
+
+Tolerance: hidden states, logits and caches within ``atol=5e-5,
+rtol=1e-5`` (float32; XLA and torch order their reductions and matmul
+accumulations differently, and torch's ``cos``/``sin`` may differ from
+XLA's by an ulp in RoPE; the measured gap is near 3e-6).  Configs, tree
+names, shapes and dtypes equal.  The port's own decode-vs-prefill check
+keeps the reference test's ``rtol=atol=2e-3``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as RC
+import repro.models as RM
+import repro_torch.configs as PC
+import repro_torch.models as PM
+from repro_torch.convert import cache_from_reference, params_from_reference
+from repro_torch.models import common as PMC
+from repro_torch.tree import flatten_with_path, leaves
+
+CPU = torch.device("cpu")
+DENSE = ["smollm-135m", "qwen3-8b", "deepseek-7b", "gemma2-9b"]
+ATOL, RTOL = 5e-5, 1e-5
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def close(a, b) -> None:
+    np.testing.assert_allclose(_np(a), _np(b), atol=ATOL, rtol=RTOL)
+
+
+def both_configs(arch: str, **changes):
+    """The smoke config of ``arch`` in each package, with ``changes``."""
+    rc = dataclasses.replace(RC.smoke(RC.get_config(arch)), **changes)
+    pc = dataclasses.replace(PC.smoke(PC.get_config(arch)), **changes)
+    return rc, pc
+
+
+def shared_params(rc, seed: int = 0):
+    rp, _ = RM.init_model(rc, jax.random.PRNGKey(seed))
+    return rp, params_from_reference(jax.tree.map(np.asarray, rp), device=CPU)
+
+
+def tokens(cfg, B: int, S: int, seed: int = 1) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Configs and the parameter tree
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", RC.list_archs())
+def test_config_and_smoke_equal_the_reference(arch):
+    ref, port = RC.get_config(arch), PC.get_config(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(PC.smoke(port)) == dataclasses.asdict(RC.smoke(ref))
+    assert port.param_count() == ref.param_count()
+    assert port.active_param_count() == ref.active_param_count()
+    for name in RC.SHAPES:
+        assert PC.shape_applicable(port, PC.SHAPES[name]) == RC.shape_applicable(ref, RC.SHAPES[name])
+
+
+def test_registry_and_shapes_equal_the_reference():
+    assert PC.list_archs() == RC.list_archs()
+    assert sorted(PC.REGISTRY) == sorted(RC.REGISTRY)
+    assert {k: dataclasses.asdict(v) for k, v in PC.SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in RC.SHAPES.items()
+    }
+    with pytest.raises(KeyError):
+        PC.get_config("no-such-arch")
+    assert PC.config().name == "paper-logstats" and PC.LogStatsConfig().beta == 254
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_tree_names_shapes_dtypes_equal_the_reference(arch):
+    rc, pc = both_configs(arch)
+    rp, _ = RM.init_model(rc, jax.random.PRNGKey(0))
+    want = [(jax.tree_util.keystr(path), tuple(a.shape), str(a.dtype))
+            for path, a in jax.tree_util.tree_flatten_with_path(rp)[0]]
+    model = PM.Model(pc, generator=torch.Generator().manual_seed(0))
+    got = [(name, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+           for name, t in flatten_with_path(model.params())]
+    assert got == want
+    # the module registers exactly those tensors, and the tree of init_model is the same
+    assert sum(1 for _ in model.parameters()) == len(want)
+    assert sum(p.numel() for p in model.parameters()) == sum(a.size for a in jax.tree.leaves(rp))
+    tree = PM.init_model(pc, torch.Generator().manual_seed(0))
+    assert [n for n, _ in flatten_with_path(tree)] == [w[0] for w in want]
+    for a, b in zip(leaves(tree), leaves(model.params())):
+        assert torch.equal(a, b)
+
+
+def test_init_distributions_and_seeds():
+    cfg = dataclasses.replace(PC.smoke(PC.get_config("qwen3-8b")), d_model=256, d_ff=1024)
+    p = PM.init_model(cfg, torch.Generator().manual_seed(3))
+    blk = p["blocks"][0]
+    assert float(p["embed"].std()) == pytest.approx(0.02, rel=0.05)
+    assert float(blk["ffn"]["w_up"].std()) == pytest.approx(256**-0.5, rel=0.05)
+    assert float(blk["ffn"]["w_down"].std()) == pytest.approx(1024**-0.5, rel=0.05)
+    assert float(blk["mixer"]["wo"].std()) == pytest.approx((4 * 32) ** -0.5, rel=0.05)
+    for g in (blk["ln1"]["g"], blk["ln2"]["g"], blk["mixer"]["q_norm"], p["final_norm"]["g"]):
+        assert not bool(g.any())
+    again = PM.init_model(cfg, torch.Generator().manual_seed(3))
+    other = PM.init_model(cfg, torch.Generator().manual_seed(4))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(p), leaves(again)))
+    assert not torch.equal(p["embed"], other["embed"])
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PC.smoke(PC.get_config("qwen3-8b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PM.init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PM.init_cache(cfg, 1, 8)
+    assert PM.init_model(cfg, device="cpu")["embed"].device == CPU
+
+
+# ---------------------------------------------------------------------------
+# The model functions against the reference
+# ---------------------------------------------------------------------------
+
+# (arch, config changes, S): gemma2 at S = 64 runs its local layers past the
+# smoke window of 32; qwen3 without RoPE and with layer norms (the
+# sinusoidal and GELU paths); deepseek at an S that q_chunk 16 does not divide
+CASES = [
+    ("smollm-135m", {}, 24),
+    ("qwen3-8b", {}, 32),
+    ("deepseek-7b", {}, 21),
+    ("gemma2-9b", {}, 64),
+    ("qwen3-8b", {"use_rope": False, "norm_type": "layernorm"}, 20),
+]
+
+
+@pytest.mark.parametrize("arch,changes,S", CASES, ids=[f"{a}{'-' + '-'.join(c) if c else ''}" for a, c, _ in CASES])
+def test_forward_prefill_decode_match_the_reference(arch, changes, S):
+    rc, pc = both_configs(arch, **changes)
+    rp, pp = shared_params(rc)
+    toks = tokens(rc, 2, S + 1)
+    B, Smax = 2, S + 8
+    with torch.no_grad():
+        rh, _ = RM.forward_hidden(rc, rp, {"tokens": jnp.asarray(toks[:, :S])})
+        ph, aux = PM.forward_hidden(pc, pp, {"tokens": toks[:, :S]})
+        assert ph.shape == (B, S, rc.d_model) and aux == {"moe_load_balance": 0.0, "moe_router_z": 0.0}
+        close(ph, rh)
+
+        rcache, _ = RM.init_cache(rc, B, Smax, dtype=jnp.float32)
+        rl, rcache = RM.prefill(rc, rp, {"tokens": jnp.asarray(toks[:, :S])}, rcache)
+        pcache = PM.init_cache(pc, B, Smax, torch.float32, CPU)
+        pl, pcache_out = PM.prefill(pc, pp, {"tokens": toks[:, :S]}, pcache)
+        assert pcache_out is pcache and pl.shape == (B, 1, rc.vocab_size)
+        close(pl, rl)
+        ref_leaves = jax.tree.leaves(rcache)
+        assert [tuple(t.shape) for t in leaves(pcache)] == [a.shape for a in ref_leaves]
+        for got, want in zip(leaves(pcache), ref_leaves):
+            close(got, want)
+
+        # decode from the reference's own cache, so only the step differs
+        rl2, rcache2 = RM.decode_step(rc, rp, rcache, jnp.asarray(toks[:, S:]), jnp.int32(S))
+        start = cache_from_reference(jax.tree.map(np.asarray, rcache), device=CPU)
+        pl2, pcache2 = PM.decode_step(pc, pp, start, toks[:, S:], S)
+        close(pl2, rl2)
+        for got, want in zip(leaves(pcache2), jax.tree.leaves(rcache2)):
+            close(got, want)
+
+
+def test_bfloat16_embedding_scale_rounds_sqrt_d_first():
+    rc, pc = both_configs("gemma2-9b", compute_dtype="bfloat16")
+    rp, pp = shared_params(rc)
+    toks = tokens(rc, 1, 8)
+    want = RM.model._embed_tokens(rc, rp, jnp.asarray(toks))
+    got = PM.model._embed_tokens(pc, pp, toks)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+    # √128 = 11.3137 rounds to 11.3125 in bfloat16 first
+    assert torch.tensor(128**0.5, dtype=torch.bfloat16).item() == 11.3125
+
+
+def test_rope_rotates_split_halves_like_the_reference():
+    x = np.random.default_rng(2).normal(size=(2, 5, 3, 8)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32) + 7
+    want = np.asarray(RM.common.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6))
+    got = PMC.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (3, None), (None, 2.0), (4, 1.5)])
+def test_attention_cores_match_the_reference(window, cap):
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 11, 2, 3, 8)).astype(np.float32)
+    k = rng.normal(size=(2, 11, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(2, 11, 2, 8)).astype(np.float32)
+    want = RM.common.chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                                       window=window, logit_cap=cap, q_chunk=4)
+    got = PMC.chunked_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True,
+                                window=window, logit_cap=cap, q_chunk=4)
+    close(got, want)
+    qd = q[:, :1]
+    want = RM.common.decode_attention(jnp.asarray(qd), jnp.asarray(k), jnp.asarray(v), jnp.int32(6),
+                                      window=window, logit_cap=cap)
+    got = PMC.decode_attention(torch.from_numpy(qd), torch.from_numpy(k), torch.from_numpy(v), 6,
+                               window=window, logit_cap=cap)
+    close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The port alone
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_prefill(arch):
+    """prefill(x[:S]) + decode(x[S]) == prefill(x[:S+1]): the caches."""
+    cfg = PC.smoke(PC.get_config(arch))
+    params = PM.init_model(cfg, torch.Generator().manual_seed(1))
+    B, S = 2, 16
+    toks = tokens(cfg, B, S + 1, seed=3)
+    with torch.no_grad():
+        full, _ = PM.prefill(cfg, params, {"tokens": toks}, PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
+        _, cache = PM.prefill(cfg, params, {"tokens": toks[:, :-1]}, PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
+        step, _ = PM.decode_step(cfg, params, cache, toks[:, -1:], S)
+    np.testing.assert_allclose(step.numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_local_window_masks_differ_from_global():
+    cfg = PC.smoke(PC.get_config("gemma2-9b"))
+    assert cfg.sliding_window == 32
+    params = PM.init_model(cfg, torch.Generator().manual_seed(2))
+    toks = tokens(cfg, 1, 64, seed=4)
+    with torch.no_grad():
+        local, _ = PM.forward_hidden(cfg, params, {"tokens": toks})
+        wide, _ = PM.forward_hidden(dataclasses.replace(cfg, sliding_window=None), params, {"tokens": toks})
+    assert bool(torch.isfinite(local).all())
+    # the window masks nothing before position 32 and something after it
+    assert torch.equal(local[:, :32], wide[:, :32])
+    assert not torch.allclose(local[:, 32:], wide[:, 32:])
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
+                                  "rwkv6-7b", "whisper-medium"])
+def test_unported_kinds_raise(arch):
+    cfg = PC.smoke(PC.get_config(arch))
+    dense = PC.smoke(PC.get_config("qwen3-8b"))
+    params = PM.init_model(dense, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
+        PM.init_model(cfg, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
+        PM.init_cache(cfg, 1, 8, device=CPU)
+    for fn in (lambda: PM.forward_hidden(cfg, params, {"tokens": np.zeros((1, 4), np.int32)}),
+               lambda: PM.decode_step(cfg, params, (), np.zeros((1, 1), np.int32), 0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
+            fn()
+
+
+def test_vision_frontend_raises():
+    cfg = PC.smoke(PC.get_config("pixtral-12b"))
+    params = PM.init_model(cfg, device=CPU)
+    batch = {"tokens": np.zeros((1, 4), np.int32),
+             "patch_embeds": np.zeros((1, cfg.frontend_tokens, cfg.d_model), np.float32)}
+    with pytest.raises(NotImplementedError, match="vision frontend"):
+        PM.forward_hidden(cfg, params, batch)
+    with pytest.raises(NotImplementedError, match="vision frontend"):
+        PM.prefill(cfg, params, batch, PM.init_cache(cfg, 1, 8, torch.float32, CPU))
+
+
+def test_model_module_forward_is_forward_hidden():
+    cfg = PC.smoke(PC.get_config("smollm-135m"))
+    model = PM.Model(cfg, device=CPU)
+    names = [n for n, _ in model.named_parameters()]
+    assert "embed" in names and "blocks.0.mixer.wq" in names and "unembed" not in names
+    toks = tokens(cfg, 2, 8)
+    with torch.no_grad():
+        assert torch.equal(model({"tokens": toks}), PM.forward_hidden(cfg, model.params(), {"tokens": toks})[0])
