@@ -88,25 +88,42 @@ Phases (any failure exits non-zero, and no result line is printed):
    width with a metrics sidecar and a replica in ``build/serve-*``
    (removed after), the replica's answer bit-equal to the primary's; the
    phase's peak device memory;
+11. training (``models.loss_fn``, ``repro_torch.train``, ``checkpoint``,
+   ``launch.train``; before phase 7 too) at SmolLM-135M's full width and
+   depth (30 layers, d 576, vocab 49,152, tied, bfloat16 compute,
+   ``remat_policy="full"``), seq 2,048 × batch 16, quantile clipping and
+   compression at ρ = 0.01: one float32 step at the smoke widths of
+   smollm-135m and qwen3-8b on the card against the CPU; a ``Trainer`` of
+   8 steps checkpointing every 4 in ``build/train-*`` (removed after), then
+   ``LATEST`` back at 4 and a second ``Trainer`` resuming to 8, its losses
+   equal within 1e-4; the first step's gradient tree (1.35e8 values)
+   through the card's ``grad_quantile``: every leaf's summary, the merged
+   boundaries and the clipping threshold bit-equal to the plain versions,
+   the merged sizes within the float32 scan's error bound (above 2^24
+   mass the scans round in different orders), both thresholds within
+   Theorem 1 of an exact count; a step timed and traced (its device time
+   by kind), a checkpoint saved and restored, the step's peak memory and
+   bound; the train launcher at full width in a subprocess;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6 and 8–10, in each regime that holds it: device µs a call by
+   phases 3–6 and 8–11, in each regime that holds it: device µs a call by
    item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
 then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5, 6, 8, 9 and 10 are the main paths: each is run with the
+Phases 3, 5, 6, 8, 9, 10 and 11 are the main paths: each is run with the
 launch counts set to 0 just before it and read just after, and fails
 unless every kernel of its path was launched (phase 9: the row sort, the
 kv sort and the merge; phase 10: the row sort and the merge, counted over
-``calibrate`` and the launcher); the run fails unless each kernel was
-launched on the six together (the kv sort only sorts merges too long for
-one block: the log analytics path's T=2048 window merges and phase 9's
-merges of many summaries).
+``calibrate`` and the launcher; phase 11: the row sort and the merge,
+counted over its two Trainers' 12 steps); the run fails unless each
+kernel was launched on the seven together (the kv sort only sorts merges
+too long for one block: the log analytics path's T=2048 window merges and
+phase 9's merges of many summaries).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Writes nothing outside ``build/`` (the kernel build, the merge shapes,
-phase 8's and phase 10's service directories and phase 9's rendezvous,
-removed at their ends).
+phase 8's and phase 10's service directories, phase 9's rendezvous and
+phase 11's checkpoints, removed at their ends).
 """
 from __future__ import annotations
 
@@ -596,8 +613,10 @@ def check_merge(dev, rng) -> dict:
     own = sum(t for key, t in items.items() if any(m in key for m in MERGE_KERNELS))
     if own <= 0:
         raise RuntimeError(f"no merge kernel ({MERGE_KERNELS}) in the trace: {sorted(items)}")
+    flat_keys = bnd_q.reshape(Q, lreal)  # what the long regime's kv sort orders, beside the library's stable sort
     out["merge_split"] = {
         "kv_sort_ms": (sum(items.values()) - own) / 1e3,
+        "torch_sort_stable_ms": cuda_ms(lambda: torch.sort(flat_keys, dim=-1, stable=True)),
         "scan_and_cut_ms": own / 1e3,
         "kv_sort_bound_ms": bound_ms(16.0 * Q * lreal, 0)[0],
         "scan_and_cut_bound_ms": bound_ms(12.0 * Q * lreal, 0)[0],
@@ -1790,9 +1809,11 @@ def distributed_plane(dev, n_log2: int = 28, n_small_log2: int = 22) -> tuple[di
         if own <= 0:
             raise RuntimeError(f"no merge kernel ({MERGE_KERNELS}) in the trace: {sorted(items)}")
         pairs = n_tiles * (T_tile + 1)  # the bounds count these, not the kv sort's padding
+        flat_keys = bnd.reshape(1, -1)
         res["device_merge_q1"] = {
             "shape": [1, n_tiles, T_tile + 1, T_dev], "pairs": pairs, "ms": whole,
             "kv_sort_ms": (sum(items.values()) - own) / 1e3, "scan_and_cut_ms": own / 1e3,
+            "torch_sort_stable_ms": cuda_ms(lambda: torch.sort(flat_keys, dim=-1, stable=True), reps=5),
             "bound_ms": merge_bound_ms(1, n_tiles, T_tile + 1, T_dev),
             "kv_sort_bound_ms": bound_ms(16.0 * pairs, 0)[0], "scan_and_cut_bound_ms": bound_ms(12.0 * pairs, 0)[0],
         }
@@ -2134,6 +2155,338 @@ def model_serving(dev) -> tuple[dict, dict]:
     return launches, res
 
 
+# ----------------------------------------------------------------- phase 11
+
+# phase 11's tolerances, set before its first run:
+# - a. one float32 train step at smoke width, card against CPU (quantile
+#   clipping, no compression): loss and grad norm within rel 1e-5 (reduction
+#   orders differ; phase 10 measured ~4e-6 on logits at this width), the clip
+#   threshold within rel 1e-4 (a gradient value picked by rank); parameters:
+#   AdamW's first step moves an entry by lr * g / (|g| + eps), which the
+#   gradients' last-bit gap flips where |g| is near eps, so at most 0.1 % of
+#   the entries may differ by more than 1e-6 and none by more than lr;
+TRAIN_F32_TOL, TRAIN_THR_TOL = 1e-5, 1e-4
+# - b. the restart: the reference restart test's rel 1e-4.
+RESTART_TOL = 1e-4
+# the row sort's and the merge's own kernels in a trace (csrc/row_sort.cu,
+# csrc/radix_sort.cuh; the kv sort shares them, and runs in no merge here)
+ROW_SORT_KERNELS = ("onesweep_kernel", "histogram_kernel", "digit_scan_kernel", "resident_kernel",
+                    "gather_cuts_kernel")
+# a traced step's device time by kind of kernel (first match wins)
+STEP_CATEGORIES = (
+    ("row_sort", ROW_SORT_KERNELS), ("merge", MERGE_KERNELS),
+    ("gemm_f32", ("f32f32", "sgemm", "gemmSN")), ("gemm_bf16", ("bf16", "nvjet", "gemm")),
+    ("softmax", ("softmax",)), ("reduce", ("reduce_kernel",)), ("elementwise", ("elementwise",)),
+    ("copy", ("Memcpy", "Memset", "copy")),
+)
+TRAIN_SEQ, TRAIN_BATCH = 2048, 16  # SmolLM-135M's context × the example's batch: 32,768 tokens a step
+
+
+def train_settings():
+    """Phase 11's optimizer and compression (``examples/train_lm.py``'s
+    flags: quantile clipping, ρ = 0.01)."""
+    from repro_torch.optim import CompressionConfig, OptimizerConfig
+
+    return (OptimizerConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=16, clip_mode="quantile"),
+            CompressionConfig(enabled=True, rho=0.01))
+
+
+def train_bound_ms(cfg, B: int, S: int) -> dict:
+    """The least time of a train step under ``remat_policy="full"``: every
+    matmul runs 4 times (forward, its recompute, two backward products):
+    the bfloat16 block GEMMs at the tensor-core rate; the float32 attention
+    core (QKᵀ and PV, unmasked) and the float32 loss einsum at the float32
+    rate.  Bytes (parameters, moments, residual: a few GB) bound far less."""
+    d, L = cfg.d_model, cfg.num_layers
+    blk = L * (d * cfg.head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff)
+    parts = {
+        "block_gemms_bf16": 2 * blk * B * S * 4 / BF16_OPS_PER_S * 1e3,
+        "attention_core_f32": 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim * L * 4 / F32_OPS_PER_S * 1e3,
+        "loss_f32": 2 * B * S * cfg.vocab_size * d * 4 / F32_OPS_PER_S * 1e3,
+    }
+    return {"ms": sum(parts.values()), "by": "operations", "parts_ms": parts, "block_params": blk}
+
+
+def train_card_vs_cpu(dev, arch: str) -> dict:
+    """Phase 11a: one float32 train step of the smoke config of ``arch`` on
+    the card against its CPU run, same parameters and batch."""
+    import torch
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_model
+    from repro_torch.train import make_opt_state, make_train_step
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    cfg = smoke(get_config(arch))
+    opt, _ = train_settings()
+    cpu = init_model(cfg, torch.Generator().manual_seed(SEED))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.default_rng(SEED + 30)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32),
+             "mask": np.ones((4, 64), np.float32)}
+    step = make_train_step(cfg, opt)
+    runs = {name: step(p, make_opt_state(p, opt), batch) for name, p in (("cpu", cpu), ("gpu", gpu))}
+    (pc, _, mc), (pg, _, mg) = runs["cpu"], runs["gpu"]
+    assert pg["embed"].device.type == dev.type
+    out = {"rel_err": {}}
+    for k, tol in (("loss", TRAIN_F32_TOL), ("grad_norm", TRAIN_F32_TOL), ("clip_threshold", TRAIN_THR_TOL)):
+        a, b = float(mg[k]), float(mc[k])
+        out["rel_err"][k] = abs(a - b) / abs(b)
+        assert out["rel_err"][k] <= tol, (arch, k, a, b)
+    lr = float(mc["lr"])
+    off = far = total = 0
+    for (name, a), b in zip(flatten_with_path(pg), leaves(pc)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= lr, (arch, name, float(d.max()), lr)
+        off, far, total = max(off, float(d.max())), far + int((d > 1e-6).sum()), total + d.numel()
+    assert far <= 1e-3 * total, (arch, far, total)
+    out.update(param_max_abs=off, params_off_1e6=far, params=total, loss=float(mc["loss"]))
+    return out
+
+
+def training(dev) -> tuple[dict, dict]:
+    """Phase 11, the training path (``models.loss_fn``, ``train``,
+    ``checkpoint``, ``launch.train``) at SmolLM-135M's full width and depth
+    (30 layers, d 576, vocab 49,152, tied; bfloat16 compute,
+    ``remat_policy="full"``), seq 2,048 × batch 16, quantile clipping and
+    compression at ρ = 0.01:
+
+    a. one float32 step at the smoke widths of smollm-135m and qwen3-8b, on
+       the card against the CPU;
+    b. a ``Trainer`` of 8 steps, checkpointing every 4 (``build/train-*``,
+       removed after); ``LATEST`` pointed back at step 4, as a crash before
+       step 8's save leaves it, and a second ``Trainer`` on the same
+       directory resumes at 4 and runs to 8: its losses at 5–8 equal the
+       first run's within ``RESTART_TOL``, the last below the first;
+    c. the first step's gradient tree (``make_grad_fn``) through the
+       card's ``grad_quantile``, clipping's and compression's (on the
+       clipped tree), against the plain versions on the same gradients on
+       the CPU: every leaf's summary, the merged boundaries and the
+       clipping threshold bit-equal, the merged sizes within the float32
+       scan's error bound, both thresholds within Theorem 1;
+    d. ``python -m repro_torch.launch.train`` at full width in a
+       subprocess, its printout checked;
+    e. a step timed (CUDA events) and traced, its device time by kind
+       (the row sort's and the merge's share), the embedding leaf's row
+       sort and the step's merge beside
+       ``torch.sort`` and their bounds, a checkpoint's save and restore, the
+       step's peak device memory and its bound.
+
+    The launch counts are those of b's two Trainers (12 steps).  Returns
+    them and the measurements."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.histogram import Histogram, build_exact, merge_list, quantile
+    from repro_torch.core.telemetry import grad_quantile, tree_summaries
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import Trainer, TrainerConfig, make_grad_fn, make_train_step
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.zeros(1, device=dev)  # the allocator's stats exist once it has allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    res, laps = {}, {}
+
+    def lap(name: str) -> None:
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # a. card against CPU at smoke width
+    res["smoke_card_vs_cpu"] = {a: train_card_vs_cpu(dev, a) for a in ("smollm-135m", "qwen3-8b")}
+    lap("a")
+
+    # b. the Trainer at full width, and its restart
+    cfg = get_config("smollm-135m")
+    assert cfg.remat_policy == "full" and cfg.compute_dtype == "bfloat16" and cfg.num_layers == 30
+    opt, comp = train_settings()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        tcfg = TrainerConfig(total_steps=8, log_every=1, checkpoint_every=4, checkpoint_dir=ckpt, seed=SEED)
+
+        def trainer(losses: dict):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                tr = Trainer(cfg, opt, tcfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, comp_cfg=comp, device=dev)
+                start = tr.start_step
+                t0 = time.perf_counter()
+                tr.run(on_metrics=lambda s, m: losses.__setitem__(s, float(m["loss"])))
+                run_s = time.perf_counter() - t0
+            for ln in out.getvalue().splitlines():
+                log(f"trainer: {ln}")
+            return tr, start, run_s
+
+        want, got = {}, {}
+        kernels.reset_launches()
+        tr, start_a, run_a = trainer(want)
+        del tr
+        # LATEST back at step 4, atomically, as a crash before step 8's save leaves it
+        with open(os.path.join(ckpt, "LATEST.tmp"), "w") as f:
+            f.write("step_00000004")
+        os.replace(os.path.join(ckpt, "LATEST.tmp"), os.path.join(ckpt, "LATEST"))
+        tr, start_b, run_b = trainer(got)
+        launches = kernels.reset_launches()
+        assert start_a == 0 and start_b == 4, (start_a, start_b)
+        assert sorted(want) == list(range(1, 9)) and sorted(got) == list(range(5, 9)), (want, got)
+        for s in got:
+            assert abs(got[s] - want[s]) <= RESTART_TOL * abs(want[s]), (s, got[s], want[s])
+        assert want[8] < want[1], want
+        assert all(np.isfinite(v) for v in want.values())
+        for name in ("tile_sort", "merge_cut"):
+            assert launches[name] > 0, f"training path never launched {name}: {launches}"
+        res["trainer"] = {"losses": want, "resumed_losses": got, "run_s": run_a, "resumed_run_s": run_b,
+                          "launches": launches, "launches_per_step": {k: v / 12 for k, v in launches.items()}}
+        lap("b")
+
+        # c. the first step's gradient tree: the card's kernels against the plain versions
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+        batch = shard_batch(data.batch_at(0), device=dev)
+        params0 = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        (loss0, _), grads = make_grad_fn(cfg)(params0, batch)
+        assert abs(float(loss0) - want[1]) <= RESTART_TOL * want[1], (float(loss0), want[1])
+        del params0
+        thr = grad_quantile(grads, opt.clip_q, opt.clip_hist_T)
+        clipped = tree_map(lambda g: torch.clamp(g, -thr, thr), grads)
+        cthr = grad_quantile(clipped, 1.0 - comp.rho, comp.hist_T)
+        assert thr.device.type == cthr.device.type == dev.type
+        merges = {}
+        # the plain versions' grad_quantile, step by step: the summaries of the
+        # same gradients on the CPU, their merge, its quantile
+        for tag, tree, q, T_, t_card in (("clip", grads, opt.clip_q, opt.clip_hist_T, thr),
+                                         ("compress", clipped, 1.0 - comp.rho, comp.hist_T, cthr)):
+            hs = list(tree_summaries(tree, T_).values())
+            hc = list(tree_summaries(tree_map(lambda g: g.cpu(), tree), T_).values())
+            for i, (h, c) in enumerate(zip(hs, hc)):
+                assert same_hist(h, c), f"{tag}: gradient leaf {i}'s summary"
+            width = max(h.sizes.shape[-1] for h in hs)
+            mg, mc = merge_list(hs, width), merge_list(hc, width)
+            assert torch.equal(mg.boundaries.cpu(), mc.boundaries), f"{tag}: merged boundaries"
+            N = float(mc.sizes.double().sum())
+            L = len(hs) * (width + 1)
+            # above 2^24 total mass the float32 scans of the merge kernel and of the
+            # plain merge (torch.cumsum) round in different orders (ROADMAP Queue 3):
+            # sizes within twice the error bound of an L-term float32 sum, 2·L·2^-24·N
+            size_off = float((mg.sizes.cpu().double() - mc.sizes.double()).abs().max())
+            assert size_off <= 2 * L * 2.0**-24 * N, (tag, size_off, L, N)
+            assert N > 2**24 or torch.equal(mg.sizes.cpu(), mc.sizes), tag
+            t_cpu = quantile(mc, torch.full((), q, dtype=torch.float32))
+            if tag == "clip":  # the clipping threshold: bit-equal (it was in every run so far)
+                assert torch.equal(t_card.cpu(), t_cpu), (float(t_card), float(t_cpu))
+            lt, le = rank_window(leaves(tree), t_card)
+            off = max(0.0, lt - q * N, q * N - le)
+            assert off <= 2 * N / T_, (tag, off, N, T_)  # the threshold's rank bound (Theorem 1)
+            merges[tag] = {"total_mass": N, "merged_sizes_max_abs_diff": size_off,
+                           "sizes_bound": 2 * L * 2.0**-24 * N, "threshold": float(t_card),
+                           "threshold_cpu": float(t_cpu), "threshold_equal": bool(torch.equal(t_card.cpu(), t_cpu)),
+                           "rank_off_over_bound": off / (2 * N / T_)}
+        names = [n for n, _ in flatten_with_path(grads)]
+        res["grad_tree"] = {"leaves": len(names), "values": sum(g.numel() for g in leaves(grads)),
+                            "largest_leaf": max((g.numel(), n) for n, g in flatten_with_path(grads)),
+                            "clip_threshold": float(thr), "compress_threshold": float(cthr), "merges": merges}
+        # the path's two kernels at its shapes, beside torch.sort and their bounds
+        sums = tree_summaries(grads, opt.clip_hist_T)
+        emb = grads["embed"].abs().reshape(-1)
+        n = emb.numel()
+        res["kernels"] = {
+            "grad_quantile_ms": cuda_ms(lambda: grad_quantile(grads, opt.clip_q, opt.clip_hist_T), reps=5),
+            "embed_row_sort_ms": cuda_ms(lambda: build_exact(emb, opt.clip_hist_T), reps=10),
+            "embed_torch_sort_ms": cuda_ms(lambda: torch.sort(emb), reps=10),
+            "embed_row_sort_bound_ms": bound_ms(4.0 * (n + opt.clip_hist_T + 1), 0)[0],
+            "merge_ms": cuda_ms(lambda: merge_list(list(sums.values()), opt.clip_hist_T), reps=20),
+            "merge_bound_ms": merge_bound_ms(1, len(sums), opt.clip_hist_T + 1, opt.clip_hist_T),
+            "shapes": {"embed_row_sort": [1, n], "merge": [1, len(sums), opt.clip_hist_T + 1, opt.clip_hist_T]},
+        }
+        del clipped, emb, sums
+        lap("c")
+
+        # e. a step timed and traced, its memory, a checkpoint's save and restore
+        step = make_train_step(cfg, opt, comp_cfg=comp)
+        params, state = tr.params, tr.opt_state
+        del tr
+        batch = shard_batch(data.batch_at(8), device=dev)
+        step(params, state, batch)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = cuda_ms(lambda: step(params, state, batch), reps=3)
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        prof, wall, events, lost, _ = traced(lambda: step(params, state, batch), retries=2)
+        items, ops = device_items(prof)
+        busy = sum(items.values()) / 1e3
+        top = sorted(items.items(), key=lambda kv: -kv[1])[:8]
+        by_category = {}
+        for key, t in items.items():
+            cat = next((c for c, marks in STEP_CATEGORIES if any(m in key for m in marks)), "other")
+            by_category[cat] = by_category.get(cat, 0.0) + t / 1e3
+        bound = train_bound_ms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        res["step"] = {
+            "ms": step_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "bound_ms": bound["ms"], "bound_by": bound["by"], "bound_parts_ms": bound["parts_ms"],
+            "peak_memory_bytes": step_peak,
+            "traced": {"wall_ms": wall * 1e3, "events_ms": events, "device_ms": busy, "device_ops": ops,
+                       "idle_share": 1.0 - busy / (wall * 1e3), "lost_launches": lost,
+                       "top_device_ms": {k[:60]: t / 1e3 for k, t in top}, "device_ms_by_category": by_category},
+            "kernels_share": (by_category.get("row_sort", 0.0) + by_category.get("merge", 0.0)) / busy,
+        }
+        save_dir = os.path.join(root, "timed")
+        t0 = time.perf_counter()
+        path = save_checkpoint(save_dir, 8, params, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, back_state, _ = restore_checkpoint(save_dir, None, params, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for a, b in zip(leaves((params, state)), leaves((back, back_state))):
+            assert a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        res["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                             "bytes": os.path.getsize(os.path.join(path, "arrays.npz"))}
+        del back, back_state, params, state, grads, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("e")
+
+        # d. the launcher at full width, in its own process
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-135m", "--steps", "2",
+               "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH), "--clip-mode", "quantile",
+               "--log-every", "1", "--checkpoint-dir", os.path.join(root, "launcher")]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        launcher_s = time.perf_counter() - t0
+        for ln in run.stdout.splitlines():
+            log(f"train launcher: {ln}")
+        assert run.returncode == 0, run.stderr[-4000:]
+        lines = run.stdout.splitlines()
+        steps = [ln for ln in lines if ln.startswith("[trainer] step=")]
+        assert [ln.split()[1] for ln in steps] == ["step=1", "step=2"], lines
+        assert all(np.isfinite(float(ln.split()[2].removeprefix("loss="))) for ln in steps), lines
+        assert lines[-1].startswith("[trainer] done: 2 steps"), lines
+        res["launcher_s"] = launcher_s
+        lap("d")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res.update(laps_s=laps, peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               path_s=time.perf_counter() - t_phase)
+    log(f"training: smoke card vs CPU {json.dumps(res['smoke_card_vs_cpu'])}")
+    log(f"training: trainer {json.dumps(res['trainer'])}")
+    log(f"training: grad tree {json.dumps(res['grad_tree'])}; kernels {json.dumps(res['kernels'])}")
+    log(f"training: step {json.dumps(res['step'])}")
+    log(f"training: checkpoint {json.dumps(res['checkpoint'])}; launcher {launcher_s:.1f} s; "
+        f"phase {res['path_s']:.1f} s, by step {json.dumps(laps)}")
+    return launches, res
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -2143,7 +2496,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6 and 8-10: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6 and 8-11: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -2224,6 +2577,7 @@ def main() -> int:
         serving = phase("8 service", lambda: service(dev))
         plane = phase("9 distributed", lambda: distributed_plane(dev))
         models = phase("10 model serving", lambda: model_serving(dev))
+        training_ = phase("11 training", lambda: training(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
@@ -2231,7 +2585,7 @@ def main() -> int:
     launches, times = main_path
     meas["bucket_count"] = big.pop("bucket_count")
     per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0],
-                "distributed": plane[0], "model_serving": models[0]}
+                "distributed": plane[0], "model_serving": models[0], "training": training_[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -2251,7 +2605,7 @@ def main() -> int:
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
                     "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "distributed": plane[1],
-                    "model_serving": models[1],
+                    "model_serving": models[1], "training": training_[1],
                     "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())

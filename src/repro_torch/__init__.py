@@ -11,7 +11,10 @@
 - :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the dense
   model stack and the model configs;
 - :mod:`repro_torch.launch` — the ``torch.distributed`` device mesh and
-  the serve launcher;
+  the serve and train launchers;
+- :mod:`repro_torch.train`, :mod:`repro_torch.checkpoint` and
+  :mod:`repro_torch.sharding` — the train step, the ``Trainer``, its
+  checkpoints (the reference's format) and the logical-axis rules;
 - :mod:`repro_torch.optim` — AdamW with quantile clipping, and gradient
   compression, over trees of tensors (:mod:`repro_torch.tree`);
 - :mod:`repro_torch.data` — the synthetic LM stream and the length

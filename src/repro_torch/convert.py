@@ -10,7 +10,8 @@ its ``save`` writes, which adds the store configuration).
 :func:`registry_from_reference` takes a registry's: the meta dict and the
 arrays of the reference's ``TenantRegistry.save`` container.
 :func:`opt_state_from_reference` takes the reference's optimizer state
-(``repro.optim.init_opt_state``/``adamw_update``) as NumPy arrays.
+(``repro.optim.init_opt_state``/``adamw_update``, or the train step's
+``make_opt_state``) as NumPy arrays.
 :func:`params_from_reference` and :func:`cache_from_reference` take a
 model's parameter tree (``repro.models.init_model``) and its decode cache
 (``init_cache``, ``prefill``, ``decode_step``), leaves as NumPy arrays.
@@ -109,12 +110,16 @@ def opt_state_from_reference(state: dict, device=None) -> dict:
 
     ``state`` is the reference's state with its leaves as NumPy arrays
     (``jax.tree.map(np.asarray, state)``); float32 and bfloat16 moments
-    keep their dtype, the step stays int32."""
-    return {
+    keep their dtype, the step stays int32; the train step's compression
+    ``"residual"`` comes across too when the state holds one."""
+    out = {
         "m": tree_map(lambda a: _leaf(a, device), state["m"]),
         "v": tree_map(lambda a: _leaf(a, device), state["v"]),
         "step": _leaf(state["step"], device),
     }
+    if "residual" in state:
+        out["residual"] = tree_map(lambda a: _leaf(a, device), state["residual"])
+    return out
 
 
 def params_from_reference(params, device=None):

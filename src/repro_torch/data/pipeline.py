@@ -1,11 +1,11 @@
 """Deterministic synthetic data pipeline with histogram length-bucketing.
 
-PyTorch port of ``repro.data.pipeline`` (``SyntheticLM`` and
-``LengthBucketer``; ``shard_batch`` comes with the port's sharding rules).
-``SyntheticLM`` is pure NumPy and gives the reference's batches bit for
-bit; ``LengthBucketer.fit`` runs the port's ``build_exact`` and
-``merge_list`` on ``device`` (``None`` → the card, ``"cpu"`` → the
-kernels' plain versions).
+PyTorch port of ``repro.data.pipeline``.  ``SyntheticLM`` is pure NumPy
+and gives the reference's batches bit for bit; ``LengthBucketer.fit`` runs
+the port's ``build_exact`` and ``merge_list`` on ``device`` (``None`` →
+the card, ``"cpu"`` → the kernels' plain versions); ``shard_batch`` gives
+this rank its share of a global batch under the ``Rules``' activation
+sharding, on the device.
 
 Determinism contract: ``batch_at(step)`` is a pure function of
 ``(seed, step)`` — restart-resume needs no data-state checkpoint beyond the
@@ -28,8 +28,9 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.histogram import _host, build_exact, merge_list
+from repro_torch.device import as_tensor
 
-__all__ = ["LengthBucketer", "SyntheticLM"]
+__all__ = ["LengthBucketer", "SyntheticLM", "shard_batch"]
 
 
 @dataclasses.dataclass
@@ -121,3 +122,27 @@ class LengthBucketer:
             "pad_waste_unbucketed": waste_flat / (tot + waste_flat),
             "counts": np.bincount(b, minlength=self.num_buckets).tolist(),
         }
+
+
+def shard_batch(batch: dict, rules=None, mesh=None, device=None) -> dict:
+    """This rank's share of a global batch, as tensors on ``device``
+    (``None`` → the card).
+
+    The reference ``device_put``s the whole batch with the ``Rules``'
+    activation sharding (``("act_batch", None)``, or ``("act_batch", None,
+    None)`` for 3-D leaves): the leading dimension splits into equal blocks
+    over the ``act_batch`` mesh axes, taken in row-major order of this
+    rank's coordinates on them.  Without a mesh, or with ``act_batch``
+    replicated, every rank gets the whole batch."""
+    axes = () if rules is None or mesh is None else rules.batch_axes()
+    k, idx = 1, 0
+    for ax in axes:
+        size = mesh.size(mesh.mesh_dim_names.index(ax))
+        idx, k = idx * size + mesh.get_local_rank(ax), k * size
+    out = {}
+    for key, v in batch.items():
+        if v.shape[0] % k:
+            raise ValueError(f"batch {key!r} of {v.shape[0]} rows does not split over {k} ranks")
+        n = v.shape[0] // k
+        out[key] = as_tensor(v[idx * n:(idx + 1) * n], device)
+    return out

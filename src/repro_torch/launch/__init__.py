@@ -1,2 +1,2 @@
-"""Launch-side helpers of the port: the device mesh (:mod:`.mesh`) and
-the serve launcher (:mod:`.serve`)."""
+"""Launch-side helpers of the port: the device mesh (:mod:`.mesh`), the
+serve launcher (:mod:`.serve`) and the train launcher (:mod:`.train`)."""

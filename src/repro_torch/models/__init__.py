@@ -1,14 +1,18 @@
 """Model stack of the port: the dense pattern-assembled transformers
-(``models.model``), their attention, feed-forward and shared primitives."""
+(``models.model``), their training loss, attention, feed-forward and
+shared primitives."""
 from repro_torch.models.model import (
     Model,
     decode_step,
     forward_hidden,
     init_cache,
     init_model,
+    loss_fn,
     prefill,
 )
+from repro_torch.models.common import chunked_softmax_xent
 
 __all__ = [
-    "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "prefill",
+    "Model", "chunked_softmax_xent", "decode_step", "forward_hidden", "init_cache",
+    "init_model", "loss_fn", "prefill",
 ]

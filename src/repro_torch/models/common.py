@@ -1,8 +1,10 @@
-"""Shared model primitives: the initializer, norms, RoPE, the attention cores.
+"""Shared model primitives: the initializer, norms, RoPE, the attention
+cores and the chunked cross-entropy.
 
 Port of ``repro.models.common`` on PyTorch.  Parameters are plain nested
 dicts (and lists) of tensors, as in the reference; the logical sharding
-specs are not carried over (sharding comes with the training slice).
+specs are not carried over (``repro_torch.sharding.Rules`` maps logical
+axes for the data-parallel train step).
 
 The attention core computes in float32 whatever the compute dtype
 (logits, probabilities and the PV product), as the reference does, and
@@ -17,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Any  # nested dict of tensors
 
@@ -186,6 +189,48 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgos,bskh->bokgh", probs, v_cache.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never all (B, S, V) logits at once)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(h, unemb, t, m, final_cap):
+    """Σ over one chunk of ``(logsumexp − gold logit) · mask``, float32."""
+    logits = softcap(h.float() @ unemb.float().T, final_cap)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return torch.sum((torch.logsumexp(logits, dim=-1) - gold) * m)
+
+
+def chunked_softmax_xent(
+    hidden: torch.Tensor,  # (B, S, d) final hidden states
+    unemb: torch.Tensor,  # (V, d) unembedding
+    targets: torch.Tensor,  # (B, S) integer ids
+    mask: torch.Tensor,  # (B, S) {0, 1}
+    *,
+    s_chunk: int = 512,
+    final_cap: float | None = None,
+) -> torch.Tensor:
+    """Mean CE loss over sequence chunks of the float32 logits:
+    ``Σ nll / max(Σ mask, 1)``.  Under autograd each chunk runs under
+    ``torch.utils.checkpoint``, so the backward holds one chunk's
+    ``(B, s_chunk, V)`` logits at a time, recomputed, as the reference's
+    ``lax.map`` does."""
+    B, S, d = hidden.shape
+    s_chunk = min(s_chunk, S)
+    n = S // s_chunk
+    assert S % s_chunk == 0
+    targets = targets.long()
+    mask = mask.to(torch.float32)
+    losses = []
+    for c in range(n):
+        args = (hidden[:, c * s_chunk:(c + 1) * s_chunk], unemb,
+                targets[:, c * s_chunk:(c + 1) * s_chunk], mask[:, c * s_chunk:(c + 1) * s_chunk], final_cap)
+        losses.append(checkpoint(_chunk_nll, *args, use_reentrant=False)
+                      if torch.is_grad_enabled() else _chunk_nll(*args))
+    counts = torch.sum(mask.reshape(B, n, s_chunk), dim=(0, 2))
+    return torch.sum(torch.stack(losses)) / torch.clamp(torch.sum(counts), min=1.0)
 
 
 def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:

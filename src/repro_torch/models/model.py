@@ -11,33 +11,53 @@ in the reference's order.
 Entry points, each taking the parameter tree (``init_model``'s, or
 ``Model.params()``):
 
-  * ``forward_hidden`` — the forward to the final norm;
+  * ``forward_hidden`` — the forward to the final norm, each layer under
+    the config's ``remat_policy`` when autograd records it;
+  * ``loss_fn``        — that forward, then the chunked cross-entropy
+    against the (tied) unembedding: the training loss;
   * ``prefill``        — forward that fills the KV caches, returns the last
     position's logits;
   * ``decode_step``    — one token against the caches.
 
 Weights are cast to the compute dtype at each use, as in the reference,
 with no copy where they already have it (``serve.Engine`` holds one
-compute-dtype copy).  The final logits are float32 hidden times the
-float32 unembedding, as in the reference.
+compute-dtype copy; the train step casts the matrices once a step).  The
+final logits are float32 hidden times the float32 unembedding, as in the
+reference.
+
+``remat_policy`` (the reference's ``jax.checkpoint`` of the scan body):
+``"full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), ``"dots"`` saves the layer's matmul outputs
+without batch dimensions (``aten.mm``: the projections, not the attention
+einsums) and recomputes the rest, ``"none"`` keeps everything.
 
 The layer kinds ``moe``, ``mamba``, ``rwkv`` and ``cross`` and the vision
-frontend raise ``NotImplementedError`` (ROADMAP Queue 1 item 7c); the
-training loss (``chunked_softmax_xent``) and sharding come with item 7b.
+frontend raise ``NotImplementedError`` (ROADMAP Queue 1 item 7c), so the
+MoE terms of ``loss_fn`` are 0.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import Init, layer_norm, rms_norm, sinusoidal_positions, softcap
-from repro_torch.tree import tree_map
+from repro_torch.models.common import (
+    Init,
+    chunked_softmax_xent,
+    layer_norm,
+    rms_norm,
+    sinusoidal_positions,
+    softcap,
+)
+from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = [
-    "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "prefill",
+    "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "loss_fn", "prefill",
 ]
 
 _PORTED = {"attn", "local", "global", "mlp"}
@@ -108,14 +128,24 @@ def apply_layer_train(cfg, kind, p, x, positions):
     return _ffn(cfg, p, x)
 
 
+def _unstacked(tree) -> list:
+    """The trees of a stacked tree's slices ``[0], [1], ...``: views from one
+    ``unbind`` a leaf (its backward stacks the slices' gradients once)."""
+    if tree is None:
+        return None
+    parts = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [u[r] for u in parts]) for r in range(len(parts[0]))]
+
+
 def _layers(cfg, params, cache=None):
     """``(kind, layer params, layer cache)`` in the reference's scan order:
     repeat ``r``, then pattern position ``i``; views of the stacked
     leaves, so a write to a layer's cache lands in ``cache``."""
+    blocks = [_unstacked(b) for b in params["blocks"]]
+    caches = [None] * len(cfg.pattern) if cache is None else [_unstacked(c) for c in cache]
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
-            c = None if cache is None else tree_map(lambda t: t[r], cache[i])
-            yield kind, tree_map(lambda t: t[r], params["blocks"][i]), c
+            yield kind, blocks[i][r], None if caches[i] is None else caches[i][r]
 
 
 # ---------------------------------------------------------------------------
@@ -232,15 +262,54 @@ def _add_sinusoid(cfg, x):
     return x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the outputs of matmuls without batch dimensions
+    (``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` under the config's ``remat_policy`` while autograd records."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_matmuls)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+
+
 def forward_hidden(cfg, params, batch: dict):
-    """Train/eval forward → ``(final hidden (B, S, d), aux dict)``."""
+    """Train/eval forward → ``(final hidden (B, S, d), aux dict)``; the MoE
+    terms of ``aux`` are 0-d float32 zeros (no MoE kind is ported)."""
     _check(cfg, batch)
     x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
     positions = _positions(x.shape[1], x.device)
     for kind, p, _ in _layers(cfg, params):
-        x = apply_layer_train(cfg, kind, p, x, positions)
-    aux = {"moe_load_balance": 0.0, "moe_router_z": 0.0}
+        x = _remat(cfg, functools.partial(apply_layer_train, cfg, kind))(p, x, positions)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"moe_load_balance": zero, "moe_router_z": zero}
     return _apply_norm(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg, params, batch: dict):
+    """Mean CE + MoE aux losses → ``(loss, {"ce", "moe_load_balance",
+    "moe_router_z"})``.  ``batch``: ``tokens``, ``targets``, ``mask``."""
+    hidden, aux = forward_hidden(cfg, params, batch)
+    unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    dev = hidden.device
+    ce = chunked_softmax_xent(
+        hidden, unemb, as_tensor(batch["targets"], dev), as_tensor(batch["mask"], dev),
+        s_chunk=cfg.loss_chunk, final_cap=cfg.final_softcap,
+    )
+    n_layers = cfg.repeats * max(sum(1 for k in cfg.pattern if "moe" in k), 1)
+    lb = aux["moe_load_balance"] / n_layers
+    zl = aux["moe_router_z"] / n_layers
+    loss = ce + cfg.moe_aux_weight * lb + cfg.moe_z_weight * zl
+    return loss, {"ce": ce, "moe_load_balance": lb, "moe_router_z": zl}
 
 
 # ---------------------------------------------------------------------------

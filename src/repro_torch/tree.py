@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["flatten_with_path", "leaves", "tree_map"]
+__all__ = ["flatten_with_path", "leaves", "tree_map", "unflatten"]
 
 
 def _children(node) -> list[tuple[str, Any]] | None:
@@ -27,14 +27,15 @@ def _children(node) -> list[tuple[str, Any]] | None:
     return None
 
 
-def flatten_with_path(tree: Any) -> list[tuple[str, Any]]:
-    """``(keystr, leaf)`` of every leaf, in JAX's order."""
+def flatten_with_path(tree: Any, is_leaf: Callable | None = None) -> list[tuple[str, Any]]:
+    """``(keystr, leaf)`` of every leaf, in JAX's order; ``is_leaf`` marks
+    containers to keep whole, as ``jax.tree_util``'s does."""
     if tree is None:
         return []
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [("", tree)]
-    return [(key + sub, leaf) for key, child in kids for sub, leaf in flatten_with_path(child)]
+    return [(key + sub, leaf) for key, child in kids for sub, leaf in flatten_with_path(child, is_leaf)]
 
 
 def leaves(tree: Any) -> list:
@@ -53,3 +54,22 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         out = [tree_map(fn, c, *(r[i] for r in rest)) for i, c in enumerate(tree)]
         return out if isinstance(tree, list) else tuple(out)
     return fn(tree, *rest)
+
+
+def unflatten(tree: Any, new_leaves) -> Any:
+    """A tree of ``tree``'s structure holding ``new_leaves`` in JAX's leaf
+    order (``jax.tree.unflatten(jax.tree.structure(tree), new_leaves)``)."""
+    it = iter(new_leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            out = [build(c) for c in node]
+            return out if isinstance(node, list) else tuple(out)
+        return next(it)
+
+    return build(tree)

@@ -646,3 +646,79 @@ def test_cuda_calibration_summaries_bit_equal_to_cpu(cuda):
     assert torch.equal(mg.boundaries.cpu(), mc.boundaries) and torch.equal(mg.sizes.cpu(), mc.sizes)
     assert out["clip"] == float(quantile(mc, np.float32(0.999))) > 0
     assert out["n_calibration_values"] == 3 * 2 * 64 * cfg.d_model
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-8b"])
+def test_cuda_train_step_matches_cpu_at_smoke_width(cuda, arch):
+    """One float32 train step (quantile clipping) on the card against the
+    CPU run of the same parameters and batch: loss and grad norm within rel
+    1e-5, the clip threshold within rel 1e-4 (a gradient value picked by
+    rank), parameters within lr and at most 0.1 % of them off by more than
+    1e-6 (AdamW's first step moves an entry by lr·g/(|g| + eps), which the
+    gradients' last-bit gap flips where |g| is near eps)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import make_opt_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = smoke(get_config(arch))
+    opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=16, clip_mode="quantile")
+    cpu = init_model(cfg, torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32),
+             "mask": np.ones((4, 64), np.float32)}
+    step = make_train_step(cfg, opt)
+    pc, _, mc = step(cpu, make_opt_state(cpu, opt), batch)
+    kernels.reset_launches()
+    pg, sg, mg = step(gpu, make_opt_state(gpu, opt), batch)
+    launches = kernels.reset_launches()
+    assert launches["tile_sort"] > 0 and launches["merge_cut"] > 0, launches
+    assert mg["loss"].device.type == "cuda" and int(sg["step"]) == 1
+    for k, tol in (("loss", 1e-5), ("grad_norm", 1e-5), ("clip_threshold", 1e-4)):
+        assert abs(float(mg[k]) - float(mc[k])) <= tol * abs(float(mc[k])), (k, float(mg[k]), float(mc[k]))
+    lr = float(mc["lr"])
+    far = total = 0
+    for a, b in zip(leaves(pg), leaves(pc)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= lr
+        far, total = far + int((d > 1e-6).sum()), total + d.numel()
+    assert far <= 1e-3 * total, (far, total)
+
+
+def test_cuda_grad_quantile_bit_equal_on_a_real_gradient_tree(cuda):
+    """The gradients of a bfloat16, fully rematerialized smollm-135m loss
+    (the stacked tree of the train step, 4 layers) through the card's
+    grad_quantile and tree_summaries: thresholds and every leaf's summary
+    bit-equal to the plain versions on the same gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.core.telemetry import grad_quantile, tree_summaries
+    from repro_torch.models import init_model
+    from repro_torch.train import make_grad_fn
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(smoke(get_config("smollm-135m")), repeats=4, remat_policy="full",
+                              compute_dtype="bfloat16")
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32),
+             "mask": np.ones((4, 128), np.float32)}
+    _, grads = make_grad_fn(cfg)(params, batch)
+    assert all(g.device.type == "cuda" and g.dtype == torch.float32 for g in leaves(grads))
+    host = tree_map(lambda g: g.cpu(), grads)
+    for q, T in ((0.999, 512), (0.99, 1024)):
+        kernels.reset_launches()
+        thr = grad_quantile(grads, q, T)
+        launches = kernels.reset_launches()
+        assert launches["tile_sort"] == len(leaves(grads)) and launches["merge_cut"] == 1, launches
+        assert torch.equal(thr.cpu(), grad_quantile(host, q, T))
+        got, want = tree_summaries(grads, T), tree_summaries(host, T)
+        assert list(got) == list(want)
+        for k in got:
+            assert torch.equal(got[k].boundaries.cpu(), want[k].boundaries), k
+            assert torch.equal(got[k].sizes.cpu(), want[k].sizes), k

@@ -80,6 +80,8 @@ def test_import_gate_in_a_fresh_interpreter():
         "repro_torch.optim, repro_torch.data; "
         "import repro_torch.configs, repro_torch.models, repro_torch.serve.engine, "
         "repro_torch.launch.serve; "
+        "import repro_torch.train, repro_torch.checkpoint, repro_torch.sharding, "
+        "repro_torch.launch.train; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "from repro_torch.kernels import _lib; "
