@@ -104,19 +104,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    Theorem 1 of an exact count; a step timed and traced (its device time
    by kind), a checkpoint saved and restored, the step's peak memory and
    bound; the train launcher at full width in a subprocess;
+12. MoE and hybrid Mamba serving (``models.moe``, ``models.mamba``,
+   ``serve.Engine``, ``launch.serve``; before phase 7 too) at full width,
+   depth cut: DBRX-132B with 2 of its 40 layers (7.75e9 float32
+   parameters) and Jamba-v0.1 with one repeat of slots 2–5 of its
+   8-layer super-block (every layer kind, 6.88e9 parameters), bfloat16:
+   each model's ``generate`` of 4 ragged prompts and one alone, prefill
+   and a decode step timed and traced (device ms by kernel kind), decode
+   against prefill dropless, bfloat16 against float32; ``calibrate`` on
+   DBRX; the smoke configs of dbrx, llama4-maverick and jamba card against
+   CPU, with a train step each; the serve launcher at smoke width;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6 and 8–11, in each regime that holds it: device µs a call by
+   phases 3–6 and 8–12, in each regime that holds it: device µs a call by
    item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
 then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5, 6, 8, 9, 10 and 11 are the main paths: each is run with the
-launch counts set to 0 just before it and read just after, and fails
+Phases 3, 5, 6, 8, 9, 10, 11 and 12 are the main paths: each is run with
+the launch counts set to 0 just before it and read just after, and fails
 unless every kernel of its path was launched (phase 9: the row sort, the
 kv sort and the merge; phase 10: the row sort and the merge, counted over
 ``calibrate`` and the launcher; phase 11: the row sort and the merge,
-counted over its two Trainers' 12 steps); the run fails unless each
-kernel was launched on the seven together (the kv sort only sorts merges
+counted over its two Trainers' 12 steps; phase 12: the row sort and the
+merge, counted over DBRX's ``calibrate``); the run fails unless each
+kernel was launched on the eight together (the kv sort only sorts merges
 too long for one block: the log analytics path's T=2048 window merges and
 phase 9's merges of many summaries).
 
@@ -249,6 +260,9 @@ def device_breakdown(fn, retries: int = 0) -> dict:
     kern = {k: t / 1e3 for k, t in items.items()}
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    kinds = {}
+    for k, t in kern.items():
+        kinds[kernel_kind(k)] = kinds.get(kernel_kind(k), 0.0) + t
     return {
         "wall_ms": wall * 1e3,
         "events_ms": events,
@@ -256,7 +270,31 @@ def device_breakdown(fn, retries: int = 0) -> dict:
         "device_ms": busy,
         "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
         "top_kernels_ms": {k[:60]: v for k, v in top},
+        "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
     }
+
+
+# kernel-name fragments by kind, first match wins (cuBLAS, cuDNN and PyTorch's own kernels)
+KERNEL_KINDS = (
+    ("copy", ("Memcpy", "Memset")),
+    ("port kernel", ("onesweep", "histogram_kernel", "digit_scan", "resident_", "merge_kernel", "gather_cuts",
+                     "count_kernel")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "gemv", "Kernel2")),
+    ("conv", ("conv",)),
+    ("softmax", ("softmax", "Softmax")),
+    ("reduce", ("reduce", "Reduce")),
+    ("sort / scan", ("sort", "Sort", "scan", "Scan")),
+    ("index / gather", ("index", "gather", "scatter", "Index", "Gather", "Scatter")),
+    ("cat", ("CatArray", "cat_")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, parts in KERNEL_KINDS:
+        if any(part in name for part in parts):
+            return kind
+    return "other"
 
 
 def same_sorted(a, b) -> bool:
@@ -1926,19 +1964,64 @@ def smoke_card_vs_cpu(dev, arch: str) -> dict:
             "generate_equal": all(np.array_equal(a, b) for a, b in zip(got, want))}
 
 
+def calibration_check(eng, batches: list, T_cal: int = 512, q: float = 0.999):
+    """``eng.calibrate`` of ``batches`` on the card, its launches counted:
+    each batch's summary (the row sort) bit-equal to its CPU run, the merge
+    and the clip to the plain merge's, the clip's rank within the bound of
+    an exact sort of all the values; then the path's two kernels timed at
+    its shapes beside ``torch.sort`` and their bounds.  Returns (launches,
+    the check, the kernels' times, calibrate ms, one forward's ms)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.histogram import build_exact, merge_list, quantile
+
+    kernels.reset_launches()
+    calib, calib_ms, _ = event_call(lambda: eng.calibrate(batches, q=q, T=T_cal))
+    launches = kernels.reset_launches()
+    assert launches["tile_sort"] >= len(batches) and launches["merge_cut"] >= 1, launches
+    values = [eng.calibration_values(b) for b in batches]
+    forward_ms = cuda_ms(lambda: eng.calibration_values(batches[0]), reps=3)
+    cpu_sums = []
+    for v in values:
+        card, host = build_exact(v, T_cal), build_exact(v.cpu(), T_cal)
+        assert torch.equal(card.boundaries.cpu(), host.boundaries) and torch.equal(card.sizes.cpu(), host.sizes)
+        cpu_sums.append(host)
+    sums = [build_exact(v, T_cal) for v in values]
+    merged, plain = merge_list(sums, 254), merge_list(cpu_sums, 254)
+    assert torch.equal(merged.boundaries.cpu(), plain.boundaries) and torch.equal(merged.sizes.cpu(), plain.sizes)
+    assert calib["clip"] == float(quantile(plain, np.float32(q))), calib
+    N = sum(v.numel() for v in values)
+    assert calib["n_calibration_values"] == N == sum(b["tokens"].size for b in batches) * eng.cfg.d_model
+    allv = torch.cat(values)
+    lt, le = int((allv < calib["clip"]).sum()), int((allv <= calib["clip"]).sum())
+    off = max(0.0, lt - q * N, q * N - le)
+    assert off <= calib["rank_error_bound"], (off, calib)
+    n = values[0].numel()
+    timed = {
+        "row_sort_ms": cuda_ms(lambda: build_exact(values[0], T_cal), reps=10),
+        "torch_sort_ms": cuda_ms(lambda: torch.sort(values[0]), reps=10),
+        "row_sort_bound_ms": bound_ms(4.0 * (n + T_cal + 1), 0)[0],
+        "merge_ms": cuda_ms(lambda: merge_list(sums, 254), reps=20),
+        "merge_bound_ms": merge_bound_ms(1, len(sums), T_cal + 1, 254),
+        "shapes": {"row_sort": [1, n], "merge": [1, len(sums), T_cal + 1, 254]},
+    }
+    return launches, {**calib, "rank_off": off, "launches": launches}, timed, calib_ms, forward_ms
+
+
 def model_serving(dev) -> tuple[dict, dict]:
     """Phase 10, the model-serving path (``repro_torch.models``,
     ``serve.Engine``, ``launch.serve``) at Qwen3-8B's full width and depth:
 
-    a. ``init_model`` (float32, 8.19e9 parameters, a seeded generator on
-       the card) and an ``Engine`` (its bfloat16 copy of the block weights);
-    b. ``generate`` of 4 ragged prompts (37, 128, 301, 512 tokens; 32 new
-       each, greedy, float32 KV cache of 576), then of the 512 alone;
-       prefill and a decode step timed with CUDA events, the batch traced;
-    c. ``prefill(x[:257])`` against ``prefill(x[:256])`` + ``decode_step``,
-       B = 2, in float32 and in bfloat16;
-    d. the batch's prefill logits in bfloat16 against float32 (the same
-       parameters), and the greedy first tokens under the margin rule;
+    a–d. ``serve_at_width``: ``init_model`` (float32, 8.19e9 parameters, a
+       seeded generator on the card) and an ``Engine`` (its bfloat16 copy
+       of the block weights); ``generate`` of 4 ragged prompts (37, 128,
+       301, 512 tokens; 32 new each, greedy, float32 KV cache of 576),
+       then of the 512 alone; prefill and a decode step timed with CUDA
+       events and traced; ``prefill(x[:257])`` against ``prefill(x[:256])``
+       + ``decode_step``, B = 2, in float32 and in bfloat16; the batch's
+       logits in bfloat16 against float32 (the same parameters), and the
+       greedy first tokens under the margin rule;
     e. the smoke configs of qwen3-8b and gemma2-9b, card against CPU;
     f. ``calibrate`` of 4 batches of (2, 512) tokens, q = 0.999, T = 512:
        each summary bit-equal to its CPU run, the merge and the clip to the
@@ -1962,153 +2045,35 @@ def model_serving(dev) -> tuple[dict, dict]:
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core.histogram import build_exact, merge_list, quantile
     from repro_torch.launch import serve as launcher
-    from repro_torch.models import decode_step, init_cache, init_model, prefill
-    from repro_torch.serve import Engine, ServeConfig
-    from repro_torch.tree import leaves
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.zeros(1, device=dev)  # the allocator's stats exist once it has allocated
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = time.perf_counter()
-    res, ms, laps = {}, {}, {}
+    laps = {}
 
     def lap(name: str) -> None:  # wall seconds of each step of the phase
         laps[name] = time.perf_counter() - t_phase - sum(laps.values())
 
-    # a. the model
+    # a-d. the model, generate, decode against prefill, bfloat16 against float32
     cfg = get_config("qwen3-8b")
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params, ms["init"], _ = event_call(lambda: init_model(cfg, torch.Generator(device=dev).manual_seed(SEED)))
-    n_params = sum(t.numel() for t in leaves(params))
-    scfg = ServeConfig(max_seq=576, max_new_tokens=32)
-    eng, ms["engine_copy"], _ = event_call(lambda: Engine(cfg, params, scfg, device=dev))
-    blk = sum(t.numel() for t in leaves(eng._run["blocks"]) if t.dtype == torch.bfloat16)
-    assert n_params == cfg.param_count() + cfg.d_model * (2 * cfg.repeats + 1) + 2 * cfg.head_dim * cfg.repeats
-
-    lap("a")
-    # b. generate: the batch, then its longest prompt alone
     rng = np.random.default_rng(SEED + 20)
-    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in (37, 128, 301, 512)]
-    outs, gen_ms, gen_wall = event_call(lambda: eng.generate(prompts))
-    alone, one_ms, one_wall = event_call(lambda: eng.generate(prompts[-1:]))
-    new = [len(o) - len(p) for o, p in zip(outs, prompts)]
-    for o, p in zip(outs + alone, prompts + prompts[-1:]):
-        assert len(p) < len(o) <= len(p) + scfg.max_new_tokens and np.array_equal(o[:len(p)], p)
-        assert int(o.min()) >= 0 and int(o.max()) < cfg.vocab_size
-    padded, _ = eng._pad_batch(prompts)
-    B, L = padded.shape
-    cache = init_cache(cfg, B, scfg.max_seq, torch.float32, dev)
-    ms["prefill"] = cuda_ms(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), reps=3)
-    logits16, cache = prefill(cfg, eng._run, {"tokens": padded}, cache)
-    tok = torch.argmax(logits16[:, -1], -1, keepdim=True).to(torch.int32)
-    ms["decode_step"] = cuda_ms(lambda: decode_step(cfg, eng._run, cache, tok, L), reps=10)
-    lap("b untraced")
-    # a trace of a whole generate holds ~1.7e5 launches and takes minutes to read:
-    # trace its two parts, one prefill and one decode step
-    res["traced"] = {
-        "prefill": device_breakdown(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), retries=2),
-        "decode_step": device_breakdown(lambda: decode_step(cfg, eng._run, cache, tok, L), retries=2),
-    }
-    del cache
-    pre, dec = (res["traced"][k]["device_ms"] for k in ("prefill", "decode_step"))
-    steps = max(new) - 1  # decode steps of the batch's generate
-    res["generate_idle_share_derived"] = 1.0 - (pre + steps * dec) / gen_wall
-    V, d = cfg.vocab_size, cfg.d_model
-    attn_f32 = 2 * 2 * B * cfg.num_heads * L * L * cfg.head_dim * cfg.repeats  # QK and PV, unmasked
-    res["bounds_ms"] = {
-        "prefill": max(2 * blk * B * L / BF16_OPS_PER_S + (attn_f32 + 2 * B * V * d) / F32_OPS_PER_S,
-                       2 * blk / HBM_BYTES_PER_S) * 1e3,
-        "decode_step": (2 * blk + 4 * V * d + 4 * 2 * cfg.repeats * B * scfg.max_seq * cfg.num_kv_heads
-                        * cfg.head_dim) / HBM_BYTES_PER_S * 1e3,
-    }
-    res["generate"] = {
-        "batch_ms": gen_ms, "batch_wall_ms": gen_wall, "new_tokens": new,
-        "tokens_per_s": sum(new) / (gen_wall / 1e3),
-        "alone_ms": one_ms, "alone_tokens_per_s": (len(alone[0]) - len(prompts[-1])) / (one_wall / 1e3),
-        "longest_alone_equal_batched": bool(np.array_equal(alone[0], outs[-1])),
-    }
-    lap("b traced")
-    # c. decode against prefill at full width, float32 and bfloat16
-    x = rng.integers(2, cfg.vocab_size, (2, 257)).astype(np.int32)
-    step_err = {}
-    for name, c, run in (("float32", cfg32, params), ("bfloat16", cfg, eng._run)):
-        full, _ = prefill(c, run, {"tokens": x}, init_cache(c, 2, 264, torch.float32, dev))
-        _, kv = prefill(c, run, {"tokens": x[:, :256]}, init_cache(c, 2, 264, torch.float32, dev))
-        step, _ = decode_step(c, run, kv, x[:, 256:], 256)
-        del kv, run  # the launcher in g needs the memory of this model back
-        assert bool(torch.isfinite(full).all())
-        diff, scale = (step - full).abs(), rms(full)
-        step_err[name] = {"max_abs": float(diff.max()), "rms_diff_over_rms": rms(step - full) / scale,
-                          "max_over_rms": float(diff.max()) / scale}
-        if name == "float32":
-            torch.testing.assert_close(step, full, rtol=F32_STEP_TOL, atol=F32_STEP_TOL)
-        else:
-            assert step_err[name]["rms_diff_over_rms"] <= BF16_RMS_TOL, step_err
-            assert step_err[name]["max_over_rms"] <= BF16_MAX_TOL, step_err
-    res["decode_vs_prefill"] = step_err
+    with torch.no_grad():
+        eng, params, res = serve_at_width(dev, cfg, dataclasses.replace(cfg, compute_dtype="float32"), rng,
+                                          BF16_RMS_TOL, BF16_MAX_TOL)
+    ms = res["ms"]
 
-    lap("c")
-    # d. bfloat16 against float32 on the batch
-    logits32, _ = prefill(cfg32, params, {"tokens": padded}, init_cache(cfg32, B, L, torch.float32, dev))
-    l16, l32 = logits16[:, -1].float(), logits32[:, -1]
-    scale = rms(l32)
-    top = torch.topk(l32, 2).values
-    judged = [i for i in range(B) if float(top[i, 0] - top[i, 1]) > BF16_MAX_TOL * scale]
-    for i in judged:
-        assert int(torch.argmax(l16[i])) == int(torch.argmax(l32[i])), i
-    res["bf16_vs_f32"] = {"rms_diff_over_rms": rms(l16 - l32) / scale,
-                          "max_over_rms": float((l16 - l32).abs().max()) / scale,
-                          "rms_f32_logits": scale, "first_tokens_judged": len(judged),
-                          "first_tokens_equal": int(sum(int(torch.argmax(l16[i]) == torch.argmax(l32[i]))
-                                                        for i in range(B)))}
-    assert res["bf16_vs_f32"]["rms_diff_over_rms"] <= BF16_RMS_TOL, res["bf16_vs_f32"]
-    assert res["bf16_vs_f32"]["max_over_rms"] <= BF16_MAX_TOL, res["bf16_vs_f32"]
-    del logits16, logits32
-
-    lap("d")
+    lap("a-d")
     # e. card against CPU at smoke width
     res["smoke_card_vs_cpu"] = {a: smoke_card_vs_cpu(dev, a) for a in ("qwen3-8b", "gemma2-9b")}
 
     lap("e")
     # f. calibrate
-    T_cal, q = 512, 0.999
     batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)} for _ in range(4)]
-    kernels.reset_launches()
-    calib, ms["calibrate"], _ = event_call(lambda: eng.calibrate(batches, q=q, T=T_cal))
-    launches = kernels.reset_launches()
-    assert launches["tile_sort"] >= 4 and launches["merge_cut"] >= 1, launches
-    values = [eng.calibration_values(b) for b in batches]
-    ms["calibration_forward"] = cuda_ms(lambda: eng.calibration_values(batches[0]), reps=3)
-    cpu_sums = []
-    for v in values:
-        card, host = build_exact(v, T_cal), build_exact(v.cpu(), T_cal)
-        assert torch.equal(card.boundaries.cpu(), host.boundaries) and torch.equal(card.sizes.cpu(), host.sizes)
-        cpu_sums.append(host)
-    sums = [build_exact(v, T_cal) for v in values]
-    merged, plain = merge_list(sums, 254), merge_list(cpu_sums, 254)
-    assert torch.equal(merged.boundaries.cpu(), plain.boundaries) and torch.equal(merged.sizes.cpu(), plain.sizes)
-    assert calib["clip"] == float(quantile(plain, np.float32(q))), calib
-    N = sum(v.numel() for v in values)
-    assert calib["n_calibration_values"] == N == 4 * 2 * 512 * d
-    allv = torch.cat(values)
-    lt, le = int((allv < calib["clip"]).sum()), int((allv <= calib["clip"]).sum())
-    off = max(0.0, lt - q * N, q * N - le)
-    assert off <= calib["rank_error_bound"], (off, calib)
-    res["calibrate"] = {**calib, "rank_off": off, "launches": launches}
-    # the path's two kernels at its shapes, beside torch.sort and their bounds
-    n = values[0].numel()
-    res["calibrate_kernels"] = {
-        "row_sort_ms": cuda_ms(lambda: build_exact(values[0], T_cal), reps=10),
-        "torch_sort_ms": cuda_ms(lambda: torch.sort(values[0]), reps=10),
-        "row_sort_bound_ms": bound_ms(4.0 * (n + T_cal + 1), 0)[0],
-        "merge_ms": cuda_ms(lambda: merge_list(sums, 254), reps=20),
-        "merge_bound_ms": merge_bound_ms(1, len(sums), T_cal + 1, 254),
-        "shapes": {"row_sort": [1, n], "merge": [1, len(sums), T_cal + 1, 254]},
-    }
-    del allv, values, sums, merged
+    launches, res["calibrate"], res["calibrate_kernels"], ms["calibrate"], ms["calibration_forward"] = \
+        calibration_check(eng, batches)
 
     lap("f")
     # g. the launcher at full width
@@ -2140,11 +2105,11 @@ def model_serving(dev) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated(dev)
     total = torch.cuda.get_device_properties(dev).total_memory
     assert peak < total, (peak, total)
-    res.update(ms=ms, laps_s=laps, params=n_params, block_weights_bf16=blk, peak_memory_bytes=peak, card_memory_bytes=total,
+    res.update(laps_s=laps, peak_memory_bytes=peak, card_memory_bytes=total,
                path_s=time.perf_counter() - t_phase)
-    log(f"model serving: qwen3-8b {n_params} parameters; {json.dumps(ms)}; bounds {json.dumps(res['bounds_ms'])}")
+    log(f"model serving: qwen3-8b {res['params']} parameters; {json.dumps(ms)}; bounds {json.dumps(res['bounds_ms'])}")
     log(f"model serving: generate {json.dumps(res['generate'])}")
-    log(f"model serving: decode vs prefill {json.dumps(step_err)}; bf16 vs f32 {json.dumps(res['bf16_vs_f32'])}; "
+    log(f"model serving: decode vs prefill {json.dumps(res['decode_vs_prefill'])}; bf16 vs f32 {json.dumps(res['bf16_vs_f32'])}; "
         f"smoke card vs CPU {json.dumps(res['smoke_card_vs_cpu'])}")
     log(f"model serving: calibrate {json.dumps(res['calibrate'])}; its kernels "
         f"{json.dumps(res['calibrate_kernels'])}; launches {launches}")
@@ -2487,6 +2452,364 @@ def training(dev) -> tuple[dict, dict]:
         f"phase {res['path_s']:.1f} s, by step {json.dumps(laps)}")
     return launches, res
 
+
+# ----------------------------------------------------------------- phase 12
+
+# phase 12's tolerances: phase 10's and phase 11a's, except bfloat16 against
+# float32 for the model with Mamba layers: its bfloat16 program (bfloat16
+# compute and scan, the config's) rounds Δ before exp(Δ·A), where |Δ·A| up
+# to ~10 turns Δ's 2^-9 into ~2 % of a decay, carried along the state; the
+# reference's own bfloat16 logits sit 0.031–0.048 (rms) from its float32
+# ones at jamba's smoke width (CPU, XLA, dropless; tests/test_torch_models.py::
+# test_bf16_logits_sit_as_far_from_float32_as_the_references), and a run of this
+# phase measured 0.051–0.066 at full width on the rows whose routing
+# agreed (0.23–0.33 max); so rms 0.10 and, as phase 10 scales them, max
+# 5 × that.
+MAMBA_BF16_RMS_TOL, MAMBA_BF16_MAX_TOL = 0.10, 0.50
+
+
+def stack_bounds_ms(cfg, blocks, B: int, L: int, max_seq: int, kept: float) -> dict:
+    """Least times of a prefill of B × L tokens and of a decode step of B
+    tokens (float32 caches of ``max_seq``) for the bfloat16 model ``cfg``,
+    whose compute-dtype blocks are ``blocks``: the larger of operations
+    and bytes each.
+    - operations: the block matmuls at the bfloat16 tensor-core rate
+      (attention and Mamba projections, MLPs, the experts for the routed
+      tokens that were kept: ``kept`` = k × (1 − drop fraction) a token);
+      at the float32 rate the router, the attention core (QKᵀ and PV,
+      unmasked), the Mamba scan (about 10 operations an element of
+      (L, d_inner, d_state)) and the last position's logits;
+    - bytes: the bfloat16 block weights (decode: of the experts that B
+      tokens can reach, min(E, B·k) a layer) and the float32 unembedding
+      read once, plus the caches read once in decode."""
+    from repro_torch.tree import leaves
+
+    d, f, V, E, k = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_experts, cfg.num_experts_per_token
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d_in, n, r = cfg.mamba_expand * d, cfg.mamba_d_state, max(d // 16, 1)
+    blk = sum(t.numel() * t.element_size() for t in leaves(blocks) if t.dtype.itemsize == 2)
+    bf16 = f32 = 0.0
+    cache = 0.0
+    unread_experts = 0.0
+    for kind in cfg.pattern:
+        mixer, ffn = kind.split("+")[0], kind.split("+")[-1]
+        if mixer == "mamba":
+            bf16 += 2 * B * L * (2 * d * d_in + d_in * (r + 2 * n) + r * d_in + d_in * d)
+            f32 += 10 * B * L * d_in * n + 2 * B * L * d_in * cfg.mamba_d_conv
+            cache += 4 * B * d_in * (n + cfg.mamba_d_conv - 1)
+        else:
+            bf16 += 2 * B * L * (d * hd * (H + 2 * Hkv) + H * hd * d)
+            f32 += 2 * 2 * B * H * L * L * hd
+            cache += 4 * 2 * B * max_seq * Hkv * hd
+        if ffn == "moe":
+            bf16 += 2 * 3 * d * f * kept * B * L
+            f32 += 2 * B * L * d * E
+            unread_experts += (E - min(E, B * k)) * 3 * d * f * 2
+        else:
+            bf16 += 2 * B * L * (2 if cfg.norm_type == "layernorm" else 3) * d * f
+    bf16, f32, cache, unread_experts = (x * cfg.repeats for x in (bf16, f32, cache, unread_experts))
+    f32 += 2 * B * V * d
+    unembed = 4 * V * d
+    ops_ms = (bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
+    prefill_bytes_ms = (blk + unembed) / HBM_BYTES_PER_S * 1e3
+    decode_bytes_ms = (blk - unread_experts + unembed + cache) / HBM_BYTES_PER_S * 1e3
+    return {
+        "prefill": max(ops_ms, prefill_bytes_ms), "prefill_by": "operations" if ops_ms >= prefill_bytes_ms else "bytes",
+        "decode_step": decode_bytes_ms, "decode_step_by": "bytes",
+        "prefill_ops_bf16": bf16, "prefill_ops_f32": f32, "block_bytes_bf16": blk,
+    }
+
+
+def expected_params(cfg) -> int:
+    """``ModelConfig.param_count`` plus what it leaves out: the norm gains
+    (two a layer and the final one), attention's qk-norm gains, and the
+    Mamba mixer's conv bias, dt bias and D (d_inner each)."""
+    per_repeat = 0
+    for kind in cfg.pattern:
+        per_repeat += 2 * cfg.d_model
+        if kind.startswith("mamba"):
+            per_repeat += 3 * cfg.mamba_expand * cfg.d_model
+        elif cfg.qk_norm:
+            per_repeat += 2 * cfg.head_dim
+    return cfg.param_count() + per_repeat * cfg.repeats + cfg.d_model
+
+
+def bf16_against_f32(cfg, cfg32, run16, run32, tokens, rms_tol: float, max_tol: float) -> dict:
+    """The last position's logits of ``tokens`` in bfloat16 (``cfg``,
+    ``run16``) against float32 (``cfg32``, ``run32``), each from one
+    forward that also gives its routing.  A top-k choice or a capacity
+    drop that a rounding flips moves a token's expert output by O(1) (one
+    of its k experts is another), so a row is held only where its last
+    position's routing — experts in slot order, and which were kept — is
+    the same in both precisions in every MoE layer: its rms difference
+    within ``rms_tol`` and its largest within ``max_tol`` of the row's
+    float32 rms, and its greedy token equal where the float32 top-2
+    margin exceeds ``max_tol`` of that rms.  At least half the rows must
+    agree (without MoE layers, all do).  Rows that differ are counted and
+    reported."""
+    import torch
+
+    from repro_torch.models import forward_hidden
+    from repro_torch.models.common import softcap
+
+    rows = {}
+    for name, c, run in (("bf16", cfg, run16), ("f32", cfg32, run32)):
+        with torch.no_grad():
+            h, aux = forward_hidden(c, run, {"tokens": tokens})
+        unemb = run["embed"] if c.tie_embeddings else run["unembed"]
+        rows[name] = (softcap(h[:, -1].float() @ unemb.float().T, c.final_softcap),
+                      [a["routing"][:, -1] for a in aux.get("moe_layers", [])])
+        del h, aux
+    (l16, r16), (l32, r32) = rows["bf16"], rows["f32"]
+    agree = [all(torch.equal(a[i], b[i]) for a, b in zip(r16, r32)) for i in range(l32.shape[0])]
+    out = {"rows_routing_agrees": agree, "rms_diff_over_rms": [], "max_over_rms": [], "greedy_judged": 0,
+           "greedy_equal": int(sum(int(torch.argmax(l16[i]) == torch.argmax(l32[i])) for i in range(len(agree)))),
+           "all_rows_rms_diff_over_rms": rms(l16 - l32) / rms(l32)}
+    for i, ok in enumerate(agree):
+        scale = rms(l32[i])
+        out["rms_diff_over_rms"].append(rms(l16[i] - l32[i]) / scale)
+        out["max_over_rms"].append(float((l16[i] - l32[i]).abs().max()) / scale)
+        if not ok:
+            continue
+        assert out["rms_diff_over_rms"][i] <= rms_tol and out["max_over_rms"][i] <= max_tol, (i, out)
+        top = torch.topk(l32[i], 2).values
+        if float(top[0] - top[1]) > max_tol * scale:
+            out["greedy_judged"] += 1
+            assert int(torch.argmax(l16[i])) == int(torch.argmax(l32[i])), (i, out)
+    assert 2 * sum(agree) >= len(agree), out
+    return out
+
+
+def serve_at_width(dev, cfg, cfg32, rng, rms_tol: float, max_tol: float) -> tuple:
+    """Phase 12's steps for one bfloat16 model at full width (``cfg``; its
+    float32 twin ``cfg32``): the model and its ``Engine``; ``generate`` of
+    4 ragged prompts (37, 128, 301, 512 tokens; 32 new each) and of the
+    512 alone, after a short warm-up; prefill and a decode step timed (CUDA events) and traced,
+    their bounds; the MoE layers' drop fractions, the first MoE layer
+    (and its three expert products alone) and the first Mamba mixer timed
+    at the prefill's shape; ``prefill(x[:257])`` against
+    ``prefill(x[:256])`` + ``decode_step`` (B = 2, dropless:
+    ``moe_capacity_factor=16``) in float32 and bfloat16; the batch's
+    logits in bfloat16 against float32 (``bf16_against_f32``, with
+    ``rms_tol`` and ``max_tol``).  Returns (the engine, the float32
+    parameters, the measurements)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import decode_step, forward_hidden, init_cache, init_model, prefill
+    from repro_torch.models.mamba import apply_mamba
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import leaves
+
+    res, ms = {}, {}
+    params, ms["init"], _ = event_call(lambda: init_model(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    n_params = sum(t.numel() for t in leaves(params))
+    assert n_params == expected_params(cfg), (n_params, expected_params(cfg))
+    scfg = ServeConfig(max_seq=576, max_new_tokens=32)
+    eng, ms["engine_copy"], _ = event_call(lambda: Engine(cfg, params, scfg, device=dev))
+
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in (37, 128, 301, 512)]
+    _, ms["warm_up_generate"], _ = event_call(lambda: eng.generate([prompts[0][:8]]))  # first launches load kernels
+    outs, gen_ms, gen_wall = event_call(lambda: eng.generate(prompts))
+    alone, one_ms, one_wall = event_call(lambda: eng.generate(prompts[-1:]))
+    new = [len(o) - len(p) for o, p in zip(outs, prompts)]
+    for o, p in zip(outs + alone, prompts + prompts[-1:]):
+        assert len(p) < len(o) <= len(p) + scfg.max_new_tokens and np.array_equal(o[:len(p)], p)
+        assert int(o.min()) >= 0 and int(o.max()) < cfg.vocab_size
+    padded, _ = eng._pad_batch(prompts)
+    B, L = padded.shape
+    cache = init_cache(cfg, B, scfg.max_seq, torch.float32, dev)
+    ms["prefill"] = cuda_ms(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), reps=3)
+    logits16, cache = prefill(cfg, eng._run, {"tokens": padded}, cache)
+    tok = torch.argmax(logits16[:, -1], -1, keepdim=True).to(torch.int32)
+    ms["decode_step"] = cuda_ms(lambda: decode_step(cfg, eng._run, cache, tok, L), reps=10)
+    res["traced"] = {
+        "prefill": device_breakdown(lambda: prefill(cfg, eng._run, {"tokens": padded}, cache), retries=2),
+        "decode_step": device_breakdown(lambda: decode_step(cfg, eng._run, cache, tok, L), retries=2),
+    }
+    del cache
+    pre, dec = (res["traced"][k]["device_ms"] for k in ("prefill", "decode_step"))
+    res["generate_idle_share_derived"] = 1.0 - (pre + (max(new) - 1) * dec) / gen_wall
+    res["generate"] = {
+        "batch_ms": gen_ms, "batch_wall_ms": gen_wall, "new_tokens": new,
+        "tokens_per_s": sum(new) / (gen_wall / 1e3),
+        "alone_ms": one_ms, "alone_tokens_per_s": (len(alone[0]) - len(prompts[-1])) / (one_wall / 1e3),
+        "longest_alone_equal_batched": bool(np.array_equal(alone[0], outs[-1])),
+    }
+    # the MoE layers' routing at the batch (prefill routes the same inputs alike)
+    with torch.no_grad():
+        _, aux = forward_hidden(cfg, eng._run, {"tokens": padded})
+    drops = [float(a["moe_drop_fraction"]) for a in aux.get("moe_layers", [])]
+    res["moe_drop_fraction"] = drops
+    kept = cfg.num_experts_per_token * (1.0 - float(np.mean(drops))) if drops else 0.0
+    res["bounds_ms"] = stack_bounds_ms(cfg, eng._run["blocks"], B, L, scfg.max_seq, kept)
+    # the MoE and Mamba mixers alone at the prefill's shape (first of each in the stack)
+    x = torch.randn((B, L, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev).to(torch.bfloat16)
+    for i, kind in enumerate(cfg.pattern):
+        blk = {k: {kk: t[0] for kk, t in v.items()} if isinstance(v, dict) else v[0]
+               for k, v in eng._run["blocks"][i].items()}
+        if kind.endswith("moe") and "apply_moe" not in ms:
+            ms["apply_moe"] = cuda_ms(lambda: apply_moe(cfg, blk["ffn"], x), reps=3)
+            # its three expert products alone, on a dispatched (B, nG, E, C, d) block
+            g = min(cfg.moe_group_size, L)
+            C = max(int(g * cfg.num_experts_per_token * cfg.moe_capacity_factor / cfg.num_experts), 1)
+            x_e = x.reshape(B, L // g, g, -1)[:, :, :C, None].expand(-1, -1, -1, cfg.num_experts, -1)
+            x_e = x_e.transpose(2, 3).contiguous()
+            w = blk["ffn"]
+
+            def experts():
+                h = torch.nn.functional.silu(torch.einsum("bnecd,edf->bnecf", x_e, w["w_gate"]))
+                h = h * torch.einsum("bnecd,edf->bnecf", x_e, w["w_up"])
+                return torch.einsum("bnecf,efd->bnecd", h, w["w_down"])
+
+            ms["moe_experts"] = cuda_ms(experts, reps=3)
+            del x_e
+        if kind.startswith("mamba") and "apply_mamba" not in ms:
+            ms["apply_mamba"] = cuda_ms(lambda: apply_mamba(cfg, blk["mixer"], x), reps=3)
+    del x
+
+    # decode against prefill, dropless, float32 and bfloat16
+    xs = rng.integers(2, cfg.vocab_size, (2, 257)).astype(np.int32)
+    step_err = {}
+    for name, c, run in (("float32", cfg32, params), ("bfloat16", cfg, eng._run)):
+        c = dataclasses.replace(c, moe_capacity_factor=16.0)
+        full, _ = prefill(c, run, {"tokens": xs}, init_cache(c, 2, 264, torch.float32, dev))
+        _, kv = prefill(c, run, {"tokens": xs[:, :256]}, init_cache(c, 2, 264, torch.float32, dev))
+        step, _ = decode_step(c, run, kv, xs[:, 256:], 256)
+        del kv
+        assert bool(torch.isfinite(full).all())
+        diff, scale = (step - full).abs(), rms(full)
+        step_err[name] = {"max_abs": float(diff.max()), "rms_diff_over_rms": rms(step - full) / scale,
+                          "max_over_rms": float(diff.max()) / scale}
+        if name == "float32":
+            torch.testing.assert_close(step, full, rtol=F32_STEP_TOL, atol=F32_STEP_TOL)
+        else:
+            assert step_err[name]["rms_diff_over_rms"] <= BF16_RMS_TOL, step_err
+            assert step_err[name]["max_over_rms"] <= BF16_MAX_TOL, step_err
+    res["decode_vs_prefill"] = step_err
+
+    # bfloat16 against float32 on the batch, row by row where the routing agrees
+    res["bf16_vs_f32"] = bf16_against_f32(cfg, cfg32, eng._run, params, padded, rms_tol, max_tol)
+    res.update(ms=ms, params=n_params,
+               block_weights_bf16=sum(t.numel() for t in leaves(eng._run["blocks"]) if t.dtype == torch.bfloat16))
+    return eng, params, res
+
+
+def moe_hybrid_serving(dev) -> tuple[dict, dict]:
+    """Phase 12, the MoE and hybrid Mamba families (``models.moe``,
+    ``models.mamba``) through ``serve.Engine`` and ``launch.serve``, at
+    full width with depth cut — the one cut of each model:
+
+    a–c. DBRX-132B (d 6144, 48 heads, 8 kv heads, 16 experts × d_ff
+       10,752, top-4, group 128 so C = 40, vocab 100,352) with
+       ``repeats`` 40 → 2: 7.75e9 float32 parameters and the Engine's
+       bfloat16 copy of the blocks (three layers would need ≈ 66 GB
+       before activations); ``serve_at_width``'s steps;
+    d. ``Engine.calibrate`` on DBRX: 2 batches of (2, 512) tokens, q =
+       0.999, T = 512 (``calibration_check``);
+    e. Jamba-v0.1 (d 4096, 32 heads, 8 kv heads, 16 experts × d_ff 14,336,
+       top-2, d_state 16, conv 4, expand 2, chunk 256, bfloat16 scan)
+       with its 8-layer super-block cut to one repeat of slots 2–5,
+       ("mamba+mlp", "mamba+moe", "attn+mlp", "mamba+moe"): every layer
+       kind of the config, 6.88e9 parameters (the whole block would need
+       ≈ 80 GB with its bfloat16 copy); ``serve_at_width``'s steps, its
+       float32 twin with the float32 scan; the 512-token prefill crosses
+       two whole chunks, the 37-token prompt has a partial one;
+    f. the smoke configs of dbrx-132b, llama4-maverick-400b-a17b and
+       jamba-v0.1-52b, card against CPU (``smoke_card_vs_cpu``) and one
+       float32 train step each (``train_card_vs_cpu``);
+    g. ``launch.serve.main --smoke`` for dbrx-132b and jamba-v0.1-52b on
+       the card.
+
+    Each model is freed before the next; each one's peak device memory is
+    recorded.  The launch counts are those of d's ``calibrate``.  Returns
+    them and the measurements."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    t_phase = time.perf_counter()
+    res, laps = {}, {}
+    rng = np.random.default_rng(SEED + 40)
+
+    def lap(name: str) -> None:  # wall seconds of each step of the phase
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    def fresh() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.zeros(1, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    fresh()
+    dbrx = dataclasses.replace(get_config("dbrx-132b"), repeats=2)
+    with torch.no_grad():
+        eng, params, res["dbrx"] = serve_at_width(dev, dbrx, dataclasses.replace(dbrx, compute_dtype="float32"), rng,
+                                                  BF16_RMS_TOL, BF16_MAX_TOL)
+    lap("a-c dbrx")
+    batches = [{"tokens": rng.integers(0, dbrx.vocab_size, (2, 512)).astype(np.int32)} for _ in range(2)]
+    launches, res["dbrx"]["calibrate"], res["dbrx"]["calibrate_kernels"], cal_ms, fwd_ms = \
+        calibration_check(eng, batches)
+    res["dbrx"]["ms"].update(calibrate=cal_ms, calibration_forward=fwd_ms)
+    res["dbrx"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del eng, params
+    lap("d calibrate")
+
+    fresh()
+    full = get_config("jamba-v0.1-52b")
+    jamba = dataclasses.replace(full, pattern=full.pattern[2:6], repeats=1)
+    assert jamba.pattern == ("mamba+mlp", "mamba+moe", "attn+mlp", "mamba+moe")
+    with torch.no_grad():
+        eng, params, res["jamba"] = serve_at_width(
+            dev, jamba, dataclasses.replace(jamba, compute_dtype="float32", mamba_scan_dtype="float32"), rng,
+            MAMBA_BF16_RMS_TOL, MAMBA_BF16_MAX_TOL)
+    res["jamba"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del eng, params
+    lap("e jamba")
+
+    fresh()
+    archs = ("dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b")
+    res["smoke_card_vs_cpu"] = {a: smoke_card_vs_cpu(dev, a) for a in archs}
+    res["train_card_vs_cpu"] = {a: train_card_vs_cpu(dev, a) for a in archs}
+    lap("f smoke")
+
+    printed = {}
+    for arch in ("dbrx-132b", "jamba-v0.1-52b"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run = launcher.main(["--arch", arch, "--smoke", "--device", str(dev), "--batch", "2",
+                                 "--max-new-tokens", "8"])
+        printed[arch] = out.getvalue().splitlines()
+        assert len(run["outputs"]) == 2 and len(printed[arch]) == 2, printed[arch]
+        for ln in printed[arch]:
+            log(f"launcher {arch}: {ln[:120]}")
+    lap("g launcher")
+    res.update(laps_s=laps, path_s=time.perf_counter() - t_phase,
+               card_memory_bytes=torch.cuda.get_device_properties(dev).total_memory)
+    for name in ("dbrx", "jamba"):
+        r = res[name]
+        log(f"moe/hybrid serving {name}: {r['params']} parameters; {json.dumps(r['ms'])}; "
+            f"bounds {json.dumps(r['bounds_ms'])}; drop fraction by MoE layer {r['moe_drop_fraction']}")
+        log(f"moe/hybrid serving {name}: generate {json.dumps(r['generate'])}; decode vs prefill "
+            f"{json.dumps(r['decode_vs_prefill'])}; bf16 vs f32 {json.dumps(r['bf16_vs_f32'])}")
+        log(f"moe/hybrid serving {name}: peak memory {r['peak_memory_bytes']} bytes; traced "
+            f"{json.dumps(r['traced'])}; generate's idle share from them {r['generate_idle_share_derived']:.3f}")
+    log(f"moe/hybrid serving: calibrate {json.dumps(res['dbrx']['calibrate'])}; its kernels "
+        f"{json.dumps(res['dbrx']['calibrate_kernels'])}")
+    log(f"moe/hybrid serving: smoke card vs CPU {json.dumps(res['smoke_card_vs_cpu'])}; train step "
+        f"{json.dumps(res['train_card_vs_cpu'])}; phase {res['path_s']:.1f} s, by step {json.dumps(laps)}")
+    return launches, res
+
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -2496,7 +2819,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6 and 8-11: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6 and 8-12: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -2578,6 +2901,7 @@ def main() -> int:
         plane = phase("9 distributed", lambda: distributed_plane(dev))
         models = phase("10 model serving", lambda: model_serving(dev))
         training_ = phase("11 training", lambda: training(dev))
+        moe_hybrid = phase("12 moe and hybrid serving", lambda: moe_hybrid_serving(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
@@ -2585,7 +2909,8 @@ def main() -> int:
     launches, times = main_path
     meas["bucket_count"] = big.pop("bucket_count")
     per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0],
-                "distributed": plane[0], "model_serving": models[0], "training": training_[0]}
+                "distributed": plane[0], "model_serving": models[0], "training": training_[0],
+                "moe_hybrid_serving": moe_hybrid[0]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -2605,7 +2930,7 @@ def main() -> int:
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,
                     "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "distributed": plane[1],
-                    "model_serving": models[1], "training": training_[1],
+                    "model_serving": models[1], "training": training_[1], "moe_hybrid_serving": moe_hybrid[1],
                     "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())

@@ -1,6 +1,8 @@
-"""Model stack of the port: the dense pattern-assembled transformers
-(``models.model``), their training loss, attention, feed-forward and
-shared primitives."""
+"""Model stack of the port: the pattern-assembled transformers
+(``models.model``) of the dense, MoE and hybrid Mamba families, their
+training loss, attention, feed-forward, the capacity-routed experts
+(``models.moe``), the selective scan (``models.mamba``) and shared
+primitives."""
 from repro_torch.models.model import (
     Model,
     decode_step,

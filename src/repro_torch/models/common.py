@@ -55,6 +55,13 @@ class Init:
     def ones(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.ones(shape, dtype=dtype, device=self.device)
 
+    def const(self, fn, shape, dtype=torch.float32) -> torch.Tensor:
+        """``fn()`` (a deterministic tensor of ``shape``) in ``dtype`` on
+        the device; it draws nothing from the generator."""
+        out = fn().to(device=self.device, dtype=dtype).contiguous()
+        assert tuple(out.shape) == tuple(shape), (out.shape, shape)
+        return out
+
 
 def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w.astype(dtype)`` of the reference: no copy when ``w`` already

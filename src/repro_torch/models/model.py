@@ -1,12 +1,14 @@
 """Model assembly: pattern-based layer stacks over stacked repeats.
 
-Port of ``repro.models.model`` for the dense layer kinds (``attn+mlp``,
-``local+mlp``, ``global+mlp``): GQA and MHA, qk-norm, attention and final
-softcaps, the sliding window, ``embed_scale`` and tied embeddings.  A model
-is a repeating ``pattern`` of layer kinds whose parameters are stacked over
-``repeats`` on a leading axis; the reference's ``jax.lax.scan`` over
-repeats is a Python loop here, repeat ``r`` then pattern position ``i``,
-in the reference's order.
+Port of ``repro.models.model`` for the dense, MoE and hybrid Mamba layer
+kinds (``attn+mlp``, ``local+mlp``, ``global+mlp``, ``attn+moe``,
+``mamba+mlp``, ``mamba+moe``): GQA and MHA, qk-norm, attention and final
+softcaps, the sliding window, ``embed_scale``, tied embeddings, the
+capacity-routed experts (``models.moe``) and the chunked selective scan
+(``models.mamba``).  A model is a repeating ``pattern`` of layer kinds
+whose parameters are stacked over ``repeats`` on a leading axis; the
+reference's ``jax.lax.scan`` over repeats is a Python loop here, repeat
+``r`` then pattern position ``i``, in the reference's order.
 
 Entry points, each taking the parameter tree (``init_model``'s, or
 ``Model.params()``):
@@ -15,8 +17,9 @@ Entry points, each taking the parameter tree (``init_model``'s, or
     the config's ``remat_policy`` when autograd records it;
   * ``loss_fn``        — that forward, then the chunked cross-entropy
     against the (tied) unembedding: the training loss;
-  * ``prefill``        — forward that fills the KV caches, returns the last
-    position's logits;
+  * ``prefill``        — forward that fills the caches (KV for attention,
+    the SSM state and conv tail for Mamba), returns the last position's
+    logits;
   * ``decode_step``    — one token against the caches.
 
 Weights are cast to the compute dtype at each use, as in the reference,
@@ -31,9 +34,13 @@ reference.
 without batch dimensions (``aten.mm``: the projections, not the attention
 einsums) and recomputes the rest, ``"none"`` keeps everything.
 
-The layer kinds ``moe``, ``mamba``, ``rwkv`` and ``cross`` and the vision
-frontend raise ``NotImplementedError`` (ROADMAP Queue 1 item 7c), so the
-MoE terms of ``loss_fn`` are 0.
+Each MoE layer's aux losses are summed across layers in the reference's
+order; ``forward_hidden``'s aux also carries, for a model with MoE layers,
+``"moe_layers"``: each MoE layer's aux in that order, whose sums the
+data-parallel train step reduces across ranks.
+
+The layer kinds ``rwkv`` and ``cross`` and the vision frontend raise
+``NotImplementedError`` (ROADMAP Queue 1 item 7c).
 """
 from __future__ import annotations
 
@@ -45,9 +52,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     Init,
+    cast,
     chunked_softmax_xent,
     layer_norm,
     rms_norm,
@@ -60,7 +70,7 @@ __all__ = [
     "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "loss_fn", "prefill",
 ]
 
-_PORTED = {"attn", "local", "global", "mlp"}
+_PORTED = {"attn", "local", "global", "mlp", "moe", "mamba"}
 _TODO = "not ported yet (ROADMAP Queue 1 item 7c: the other model families)"
 
 
@@ -106,9 +116,14 @@ def _apply_norm(cfg, p, x):
 
 
 def init_layer(cfg: ModelConfig, kind: str, rng: Init) -> dict:
-    params = {"ln1": _init_norm(cfg, rng), "mixer": attn_mod.init_attention(cfg, rng)}
+    parts = _parse(kind)
+    params = {"ln1": _init_norm(cfg, rng)}
+    params["mixer"] = mamba_mod.init_mamba(cfg, rng) if parts[0] == "mamba" else attn_mod.init_attention(cfg, rng)
     params["ln2"] = _init_norm(cfg, rng)
-    params["ffn"] = mlp_mod.init_mlp(cfg, rng, gated=cfg.norm_type != "layernorm")
+    if parts[-1] == "moe":
+        params["ffn"] = moe_mod.init_moe(cfg, rng)
+    else:
+        params["ffn"] = mlp_mod.init_mlp(cfg, rng, gated=cfg.norm_type != "layernorm")
     return params
 
 
@@ -116,16 +131,25 @@ def _mixer(kind: str) -> str:
     return "local" if _parse(kind)[0] == "local" else "global"
 
 
-def _ffn(cfg, p, x):
-    """The block's second half: ``x + mlp(norm(x))``."""
-    return x + mlp_mod.apply_mlp(cfg, p["ffn"], _apply_norm(cfg, p["ln2"], x),
-                                 gated=cfg.norm_type != "layernorm")
+def _ffn(cfg, kind, p, x):
+    """The block's second half: ``(x + ffn(norm(x)), the MoE aux or
+    None)``."""
+    h = _apply_norm(cfg, p["ln2"], x)
+    if _parse(kind)[-1] == "moe":
+        h, aux = moe_mod.apply_moe(cfg, p["ffn"], h)
+        return x + h, aux
+    return x + mlp_mod.apply_mlp(cfg, p["ffn"], h, gated=cfg.norm_type != "layernorm"), None
 
 
 def apply_layer_train(cfg, kind, p, x, positions):
-    """Pre-norm residual block (train / eval forward)."""
-    x = x + attn_mod.apply_attention(cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), positions, kind=_mixer(kind))
-    return _ffn(cfg, p, x)
+    """Pre-norm residual block (train / eval forward) → ``(x, the MoE
+    layer's aux or None)``."""
+    h = _apply_norm(cfg, p["ln1"], x)
+    if _parse(kind)[0] == "mamba":
+        h, _ = mamba_mod.apply_mamba(cfg, p["mixer"], h)
+    else:
+        h = attn_mod.apply_attention(cfg, p["mixer"], h, positions, kind=_mixer(kind))
+    return _ffn(cfg, kind, p, x + h)
 
 
 def _unstacked(tree) -> list:
@@ -283,16 +307,30 @@ def _remat(cfg, fn):
 
 
 def forward_hidden(cfg, params, batch: dict):
-    """Train/eval forward → ``(final hidden (B, S, d), aux dict)``; the MoE
-    terms of ``aux`` are 0-d float32 zeros (no MoE kind is ported)."""
+    """Train/eval forward → ``(final hidden (B, S, d), aux dict)``: the MoE
+    load-balance and router-z losses summed over the layers (0-d float32
+    zeros without MoE layers), and ``"moe_layers"`` where there are some
+    (module docstring)."""
     _check(cfg, batch)
     x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
     positions = _positions(x.shape[1], x.device)
-    for kind, p, _ in _layers(cfg, params):
-        x = _remat(cfg, functools.partial(apply_layer_train, cfg, kind))(p, x, positions)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_load_balance": zero, "moe_router_z": zero}
+    moe_layers = []
+    for kind, p, _ in _layers(cfg, params):
+        x, a = _remat(cfg, functools.partial(apply_layer_train, cfg, kind))(p, x, positions)
+        if a is not None:
+            aux = {k: v + a[k] for k, v in aux.items()}
+            moe_layers.append(a)
+    if moe_layers:
+        aux["moe_layers"] = moe_layers
     return _apply_norm(cfg, params["final_norm"], x), aux
+
+
+def moe_layer_count(cfg) -> int:
+    """What ``loss_fn`` divides the summed MoE terms by: the MoE layers,
+    at least 1."""
+    return cfg.repeats * max(sum(1 for k in cfg.pattern if "moe" in k), 1)
 
 
 def loss_fn(cfg, params, batch: dict):
@@ -305,7 +343,7 @@ def loss_fn(cfg, params, batch: dict):
         hidden, unemb, as_tensor(batch["targets"], dev), as_tensor(batch["mask"], dev),
         s_chunk=cfg.loss_chunk, final_cap=cfg.final_softcap,
     )
-    n_layers = cfg.repeats * max(sum(1 for k in cfg.pattern if "moe" in k), 1)
+    n_layers = moe_layer_count(cfg)
     lb = aux["moe_load_balance"] / n_layers
     zl = aux["moe_router_z"] / n_layers
     loss = ce + cfg.moe_aux_weight * lb + cfg.moe_z_weight * zl
@@ -318,15 +356,21 @@ def loss_fn(cfg, params, batch: dict):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> tuple:
-    """Per pattern position, ``{"kv": {"k", "v"}}`` stacked over
-    ``repeats``: ``(repeats, batch, max_seq, kv heads, head_dim)`` zeros on
-    ``device`` (``None`` → the card)."""
+    """Per pattern position, its caches stacked over ``repeats``, zeros on
+    ``device`` (``None`` → the card): ``{"kv": {"k", "v"}}`` of
+    ``(repeats, batch, max_seq, kv heads, head_dim)`` for attention,
+    ``{"ssm": {"h", "conv"}}`` for Mamba (``h`` float32 whatever
+    ``dtype``)."""
     _check(cfg)
     dev = resolve_device(device)
+
+    def stacked(tree):
+        return tree_map(lambda t: t.expand((cfg.repeats,) + t.shape).clone(), tree)
+
     return tuple(
-        {"kv": tree_map(lambda t: t.expand((cfg.repeats,) + t.shape).clone(),
-                        attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, dev))}
-        for _ in cfg.pattern
+        {"ssm": stacked(mamba_mod.init_mamba_cache(cfg, batch, dtype, dev))} if _parse(kind)[0] == "mamba"
+        else {"kv": stacked(attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, dev))}
+        for kind in cfg.pattern
     )
 
 
@@ -336,15 +380,22 @@ def _logits(cfg, params, x):
 
 
 def _layer_prefill(cfg, kind, p, cache, x, positions):
-    h, _ = attn_mod.prefill_attention(
-        cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), positions, cache["kv"], kind=_mixer(kind)
-    )
-    return _ffn(cfg, p, x + h)
+    h = _apply_norm(cfg, p["ln1"], x)
+    if _parse(kind)[0] == "mamba":
+        ssm = cache["ssm"]
+        conv_tail = (h @ cast(p["mixer"]["wx"], h.dtype))[:, -(cfg.mamba_d_conv - 1):]  # pre-conv rows
+        h, h_final = mamba_mod.apply_mamba(cfg, p["mixer"], h)
+        ssm["h"].copy_(h_final)
+        ssm["conv"].copy_(conv_tail)
+    else:
+        h, _ = attn_mod.prefill_attention(cfg, p["mixer"], h, positions, cache["kv"], kind=_mixer(kind))
+    return _ffn(cfg, kind, p, x + h)[0]
 
 
 def prefill(cfg, params, batch: dict, cache: tuple):
-    """Process the whole prompt, fill the caches at ``[0, S)`` (in place),
-    return ``(last-position logits (B, 1, V), cache)``."""
+    """Process the whole prompt, fill the caches in place (KV at ``[0,
+    S)``, the SSM state and conv tail), return ``(last-position logits
+    (B, 1, V), cache)``."""
     _check(cfg, batch)
     x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
     positions = _positions(x.shape[1], x.device)
@@ -355,15 +406,20 @@ def prefill(cfg, params, batch: dict, cache: tuple):
 
 
 def _layer_decode(cfg, kind, p, cache, x, pos: int):
-    h, _ = attn_mod.decode_attention_step(
-        cfg, p["mixer"], _apply_norm(cfg, p["ln1"], x), pos, cache["kv"], kind=_mixer(kind)
-    )
-    return _ffn(cfg, p, x + h)
+    h = _apply_norm(cfg, p["ln1"], x)
+    if _parse(kind)[0] == "mamba":
+        h, new = mamba_mod.decode_mamba_step(cfg, p["mixer"], h, cache["ssm"])
+        for key, t in new.items():
+            cache["ssm"][key].copy_(t)
+    else:
+        h, _ = attn_mod.decode_attention_step(cfg, p["mixer"], h, pos, cache["kv"], kind=_mixer(kind))
+    return _ffn(cfg, kind, p, x + h)[0]
 
 
 def decode_step(cfg, params, cache: tuple, token, pos: int):
     """token: ``(B, 1)`` ids; pos: the host index of that token →
-    ``(logits (B, 1, V), cache)``, the caches written at ``pos`` in place."""
+    ``(logits (B, 1, V), cache)``, the caches written in place (KV at
+    ``pos``)."""
     _check(cfg)
     pos = int(pos)
     x = _embed_tokens(cfg, params, token)

@@ -1,0 +1,117 @@
+"""Mixture-of-Experts layer: GShard-style capacity dispatch.
+
+Port of ``repro.models.moe``.  Top-k routing with grouped capacity: the
+sequence is split into groups of ``moe_group_size`` tokens; each group
+dispatches at most ``C = group·k·capacity_factor/E`` tokens per expert
+through one-hot einsum dispatch and combine tensors, as the reference
+does (a gather/scatter dispatch would sum in another order).
+
+Routing runs in float32: the router product, softmax, top-k and the
+renormalized gates.  The top k are taken stably by index (a stable sort
+of ``-probs``), so a tie keeps the lower expert index first, as
+``jax.lax.top_k`` does.  The expert products run in the compute dtype.
+
+The reference's ``_pin_experts`` is a sharding constraint on the expert
+dimension; the port's model takes no sharding rules, so it has no
+counterpart here.
+
+Beside the reference's aux values, :func:`apply_moe` returns the routing
+decisions, ``routing`` ``(B, S, k)``: each token's experts in slot order,
+-1 where its capacity queue dropped it; and the sums the data-parallel
+train step needs to form the load-balance loss from the global batch's
+means: ``prob_sum`` (the router probabilities summed over every token
+slot, differentiable), ``route_sum`` (the routed one-hots summed) and
+``slots`` (the token slots, pads included, that both means divide by).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import Init, cast
+
+__all__ = ["apply_moe", "init_moe"]
+
+
+def init_moe(cfg, rng: Init) -> dict:
+    """The router and the stacked experts.  ``w_gate`` and ``w_up`` take
+    ``dense``'s default fan-in, their first dimension E, as the
+    reference's do: N(0, 1/E), not N(0, 1/d)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "w_router": rng.dense((d, E)),
+        "w_gate": rng.dense((E, d, f)),
+        "w_up": rng.dense((E, d, f)),
+        "w_down": rng.dense((E, f, d), fan_in=f),
+    }
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.nn.one_hot(idx, n)`` in float32: an index outside ``[0, n)``
+    gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.float32)
+
+
+def apply_moe(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """x: ``(B, S, d)`` → ``(y, aux)``: the load-balance and router-z
+    losses, the drop fraction, the routing and the sums of the module
+    docstring."""
+    B0, S0, d = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_token
+    # decode (S == 1): the batch becomes one sequence of groups, else
+    # capacity degenerates to one slot an expert a token
+    if S0 == 1 and B0 > 1:
+        x = x.reshape(1, B0, d)
+    B, S, _ = x.shape
+    g = min(cfg.moe_group_size, S)
+    S_real = S
+    pad = (-S) % g
+    if pad:  # pads at the end keep the real tokens' queue positions
+        x = F.pad(x, (0, 0, 0, pad))
+        S += pad
+    nG = S // g
+    valid = (torch.arange(S, device=x.device) < S_real).reshape(1, nG, g)
+    cap = max(int(g * k * cfg.moe_capacity_factor / E), 1)
+    dt = x.dtype
+
+    xg = x.reshape(B, nG, g, d)
+    logits = torch.einsum("bngd,de->bnge", xg.float(), p["w_router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]  # (B, nG, g, k), ties: lower index first
+    gate = torch.gather(probs, -1, idx)
+    gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True), min=1e-9)
+
+    onehot = _one_hot(idx, E) * valid[..., None, None].to(torch.float32)  # (B, nG, g, k, E)
+    # each (token, slot)'s place in its expert's queue: slot 0 first, then
+    # tokens in sequence order within a slot
+    flat = onehot.movedim(3, 2).reshape(B, nG, k * g, E)
+    pos_flat = torch.cumsum(flat, dim=2) - flat  # exclusive prefix count
+    pos = pos_flat.reshape(B, nG, k, g, E).movedim(2, 3)  # (B, nG, g, k, E)
+    kept = onehot * (pos < cap).to(torch.float32)
+
+    combine_w = gate[..., None] * kept
+    pos_idx = torch.sum(pos * onehot, dim=-1)  # (B, nG, g, k)
+    combine = torch.einsum("bngke,bngkc->bngec", combine_w, _one_hot(pos_idx, cap))
+    dispatch = (combine > 0).to(dt)  # (B, nG, g, E, C)
+
+    x_e = torch.einsum("bngec,bngd->bnecd", dispatch, xg.to(dt))
+    h_g = torch.einsum("bnecd,edf->bnecf", x_e, cast(p["w_gate"], dt))
+    h_u = torch.einsum("bnecd,edf->bnecf", x_e, cast(p["w_up"], dt))
+    y_e = torch.einsum("bnecf,efd->bnecd", F.silu(h_g) * h_u, cast(p["w_down"], dt))
+    y = torch.einsum("bngec,bnecd->bngd", combine.to(dt), y_e)
+
+    # aux: GShard load balance and router z-loss
+    routed = onehot[..., 0, :] if k == 1 else onehot.sum(3)  # (B, nG, g, E)
+    me = torch.mean(probs, dim=(0, 1, 2))  # mean router probability
+    ce = torch.mean(torch.sum(routed, dim=-2) / g, dim=(0, 1))  # fraction routed
+    aux = {
+        "moe_load_balance": E * torch.sum(me * ce),
+        "moe_router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "moe_drop_fraction": 1.0 - torch.sum(kept) / torch.clamp(torch.sum(onehot), min=1.0),
+        "prob_sum": torch.sum(probs, dim=(0, 1, 2)),
+        "route_sum": torch.sum(routed, dim=(0, 1, 2)),
+        "slots": B * nG * g,
+        "routing": torch.where(kept.sum(-1) > 0, idx, -1).reshape(B, S, k)[:, :S_real].reshape(B0, S0, k),
+    }
+    y = y.reshape(B, S, d)[:, :S_real]
+    return y.reshape(B0, S0, d), aux

@@ -35,7 +35,9 @@ from repro_torch.tree import tree_map
 __all__ = ["Engine", "ServeConfig"]
 
 # the block leaves the reference casts to the compute dtype at each use
-_CAST = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "b_up", "b_down"}
+# (the experts' too); the router, A_log, D and dt_bias it uses in float32
+_CAST = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "b_up", "b_down",
+         "wx", "wz", "conv_w", "conv_b", "w_dbc", "w_dt", "w_out"}
 
 
 @dataclasses.dataclass

@@ -722,3 +722,59 @@ def test_cuda_grad_quantile_bit_equal_on_a_real_gradient_tree(cuda):
         for k in got:
             assert torch.equal(got[k].boundaries.cpu(), want[k].boundaries), k
             assert torch.equal(got[k].sizes.cpu(), want[k].sizes), k
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_cuda_apply_moe_matches_cpu(cuda, arch):
+    """apply_moe on the card against its CPU run, float32, the smoke
+    config: the same routing (drop fraction equal), y and the aux losses
+    within atol=rtol=1e-4; the decode fold too (B = 8, S = 1)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models.common import Init
+    from repro_torch.models.moe import apply_moe, init_moe
+
+    cfg = smoke(get_config(arch))
+    p = init_moe(cfg, Init(torch.Generator().manual_seed(0), torch.device("cpu")))
+    rng = np.random.default_rng(0)
+    for shape in ((2, 40, cfg.d_model), (8, 1, cfg.d_model)):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        with torch.no_grad():
+            yc, ac = apply_moe(cfg, p, x)
+            yg, ag = apply_moe(cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+        assert yg.device.type == "cuda"
+        torch.testing.assert_close(yg.cpu(), yc, atol=1e-4, rtol=1e-4)
+        for k in ("moe_load_balance", "moe_router_z"):
+            torch.testing.assert_close(ag[k].cpu(), ac[k], atol=1e-4, rtol=1e-4)
+        assert float(ag["moe_drop_fraction"]) == float(ac["moe_drop_fraction"])
+
+
+@pytest.mark.parametrize("scan", ["float32", "bfloat16"])
+def test_cuda_apply_mamba_matches_cpu(cuda, scan):
+    """apply_mamba (two chunks and a tail) and decode_mamba_step on the
+    card against their CPU runs, float32 compute: y and the state within
+    atol=rtol=1e-4 with the float32 scan; with the bfloat16 scan, within
+    2e-2 of their largest magnitudes (one bfloat16 rounding apart where
+    the two devices' exp or product rounds differently)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models.common import Init
+    from repro_torch.models.mamba import apply_mamba, decode_mamba_step, init_mamba, init_mamba_cache
+
+    cfg = dataclasses.replace(smoke(get_config("jamba-v0.1-52b")), mamba_scan_dtype=scan)
+    p = init_mamba(cfg, Init(torch.Generator().manual_seed(0), torch.device("cpu")))
+    pg = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 17, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        runs = {}
+        for name, params, dev in (("cpu", p, "cpu"), ("gpu", pg, cuda)):
+            y, h = apply_mamba(cfg, params, x.to(dev))
+            cache = init_mamba_cache(cfg, 2, torch.float32, device=dev)
+            cache["h"].copy_(h)
+            step, new = decode_mamba_step(cfg, params, x[:, :1].to(dev), cache)
+            runs[name] = [t.cpu() for t in (y, h, step, new["h"])]
+    for a, b in zip(runs["gpu"], runs["cpu"]):
+        if scan == "float32":
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())

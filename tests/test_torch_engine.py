@@ -82,7 +82,7 @@ def forced_agreement(eng, prompts, outs) -> int | None:
     return uncertain
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b", "dbrx-132b", "jamba-v0.1-52b"])
 def test_greedy_generate_matches_the_reference(arch):
     ref, port = engines(arch, max_seq=48, max_new_tokens=8)
     prompts = prompts_of(ref.cfg, (5, 9, 12))
@@ -194,3 +194,18 @@ def test_launcher_prints_what_the_reference_prints(tmp_path, monkeypatch, capsys
     assert ep == er and not res["replica"].degraded
     assert np.array_equal(np.asarray(hp.boundaries), np.asarray(hr.boundaries))
     assert np.array_equal(np.asarray(hp.sizes), np.asarray(hr.sizes))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"])
+def test_launcher_serves_the_moe_and_hybrid_smoke_configs(arch, monkeypatch, capsys):
+    """``--arch <moe or hybrid> --smoke`` on the CPU prints the reference
+    launcher's lines (token values blanked: each package draws its own
+    weights)."""
+    flags = ["--arch", arch, "--smoke", "--batch", "2", "--max-new-tokens", "3"]
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    R_launch.main()
+    want = capsys.readouterr().out
+    res = P_launch.main([*flags, "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _normalized(got) == _normalized(want)
+    assert len(res["outputs"]) == 2 and all(len(o) > 0 for o in res["outputs"])

@@ -11,14 +11,21 @@ gets a JAX ``AbstractMesh`` and the port a stand-in with a
 The data-parallel step runs on 8 gloo ranks (a (4, 2) ``("data",
 "model")`` mesh, each rank its own subprocess with a ``file://``
 rendezvous, every process joined with a timeout), from the reference's
-parameters (carried in an npz).  Tolerance: every rank's loss and
-parameters equal rank 0's bit for bit (the step all-reduces the
-gradients, so every rank applies the same update); the loss within 1e-5
-of the single-process port's on the whole batch (the mean of four shards'
-means against one mean), the parameters within ``lr`` of it (AdamW's
-first step moves an entry by ``lr · g / (|g| + eps)``, which the
-gradients' last-bit gap can flip where |g| is near eps); the loss within
-the reference test's 5e-2 of the reference's single-device step.
+parameters (carried in an npz), in five cases: qwen3-8b's smoke config
+with an all-ones mask; with a ragged mask (row 1 zero past position 4,
+so the ranks' mask counts differ), without and with ``grad_accum=2``;
+and dbrx-132b's smoke config (MoE: the load balance is a product of two
+batch means) with the ragged mask, without and with ``grad_accum=2``.
+Tolerance: every rank's loss and parameters equal rank 0's bit for bit
+(the step all-reduces the gradients, so every rank applies the same
+update); the loss and ``grad_norm`` within rel 1e-5 of the reference's
+single-device step on the whole batch, and the ranks' gradient shares
+summed (``make_grad_fn`` on the mesh) within the float32 tolerance
+``atol=5e-5, rtol=1e-5`` of the reference's gradient of the whole batch;
+in the all-ones case also the loss within 1e-5 of the single-process
+port's, the parameters within ``lr`` of it (AdamW's first step moves an
+entry by ``lr · g / (|g| + eps)``, which the gradients' last-bit gap can
+flip where |g| is near eps).
 """
 import os
 import subprocess
@@ -180,24 +187,44 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import init_model
 from repro_torch.optim import OptimizerConfig
 from repro_torch.sharding import Rules
-from repro_torch.train import make_opt_state, make_train_step
-from repro_torch.tree import flatten_with_path, unflatten
+from repro_torch.train import make_grad_fn, make_opt_state, make_train_step
+from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 inp = dict(np.load(inp_path))
-cfg = smoke(get_config("qwen3-8b"))
-template = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-params = unflatten(template, [torch.from_numpy(inp["p" + name]) for name, _ in flatten_with_path(template)])
 mesh = make_mesh((4, 2), ("data", "model"), device_type="cpu")
-rules = Rules(cfg, mesh, "train", seq_len=32)
-batch = shard_batch({k: inp[k] for k in ("tokens", "targets", "mask")}, rules, mesh, device="cpu")
-assert batch["tokens"].shape == (2, 32)
-step = make_train_step(cfg, OptimizerConfig(), rules, mesh=mesh)
-p2, o2, m = step(params, make_opt_state(params, OptimizerConfig()), batch)
-out = {"loss": m["loss"].numpy(), "grad_norm": m["grad_norm"].numpy()}
-out.update({"p" + name: t.numpy() for name, t in flatten_with_path(p2)})
+out = {}
+for case, (arch, accum) in %(cases)r.items():
+    cfg = smoke(get_config(arch))
+    template = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = unflatten(template, [torch.from_numpy(inp[arch + ":p" + name]) for name, _ in flatten_with_path(template)])
+    rules = Rules(cfg, mesh, "train", seq_len=32)
+    whole = {k: inp[case + ":" + k] for k in ("tokens", "targets", "mask")}
+    if accum > 1:
+        micro = [shard_batch({k: v[i] for k, v in whole.items()}, rules, mesh, device="cpu") for i in range(accum)]
+        batch = {k: torch.stack([m[k] for m in micro]) for k in whole}
+    else:
+        micro = [shard_batch(whole, rules, mesh, device="cpu")]
+        batch = micro[0]
+    assert micro[0]["tokens"].shape == (2, 32)
+    opt = OptimizerConfig(grad_accum=accum)
+    p2, _, m = make_train_step(cfg, opt, rules, mesh=mesh)(params, make_opt_state(params, opt), batch)
+    out[case + ":loss"], out[case + ":grad_norm"] = m["loss"].numpy(), m["grad_norm"].numpy()
+    if case == "ones":
+        out.update({case + ":p" + name: t.numpy() for name, t in flatten_with_path(p2)})
+    # the ranks' gradient shares, summed over the data axis: the whole batch's gradient
+    grad_fn = make_grad_fn(cfg, rules, mesh)
+    shares = [leaves(grad_fn(params, mb)[1]) for mb in micro]
+    for (name, _), *gs in zip(flatten_with_path(params), *shares):
+        g = sum(gs) / accum
+        dist.all_reduce(g, group=mesh.get_group("data"))
+        out[case + ":g" + name] = g.numpy()
 np.savez(out_prefix + str(rank) + ".npz", **out)
 dist.destroy_process_group()
-''' % {"world": WORLD}
+'''
+
+# case → (arch, grad_accum); the cases but "ones" mask row 1 past position 4
+DP_CASES = {"ones": ("qwen3-8b", 1), "ragged": ("qwen3-8b", 1), "ragged_accum": ("qwen3-8b", 2),
+            "moe_ragged": ("dbrx-132b", 1), "moe_ragged_accum": ("dbrx-132b", 2)}
 
 
 def _finish(procs: dict, timeout: float) -> dict:
@@ -215,19 +242,44 @@ def _finish(procs: dict, timeout: float) -> dict:
     return out
 
 
-def test_data_parallel_step_on_8_gloo_ranks_matches_one_process_and_the_reference(tmp_path):
-    rc, pc = RC.smoke(RC.get_config("qwen3-8b")), PC.smoke(PC.get_config("qwen3-8b"))
-    rp, _ = RM.init_model(rc, jax.random.PRNGKey(0))
+def dp_batch(rc, case: str, accum: int) -> dict:
     rng = np.random.default_rng(0)
-    batch = {
-        "tokens": rng.integers(0, rc.vocab_size, (8, 32)).astype(np.int32),
-        "targets": rng.integers(0, rc.vocab_size, (8, 32)).astype(np.int32),
-        "mask": np.ones((8, 32), np.float32),
+    shape = (accum, 8, 32) if accum > 1 else (8, 32)
+    mask = np.ones(shape, np.float32)
+    if case != "ones":
+        mask[..., 1, 5:] = 0.0  # ROADMAP Queue 3 fault A's probe: row 1 of each microbatch
+    return {
+        "tokens": rng.integers(0, rc.vocab_size, shape).astype(np.int32),
+        "targets": rng.integers(0, rc.vocab_size, shape).astype(np.int32),
+        "mask": mask,
     }
-    host = jax.tree.map(np.asarray, rp)
-    inp = {"p" + jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(host)[0]}
-    np.savez(tmp_path / "inputs.npz", **inp, **batch)
-    (tmp_path / "rank.py").write_text(PORT_RANK)
+
+
+def ref_whole_batch(rc, rp, batch: dict, accum: int):
+    """The reference's single-device step metrics and its gradient of the
+    whole batch (the mean over microbatches), float32."""
+    opt = RO.OptimizerConfig(grad_accum=accum)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    _, _, m = jax.jit(ref_train_step(rc, opt))(rp, ref_opt_state(rp, opt), jb)
+    grad = jax.jit(jax.grad(lambda p, b: RM.loss_fn(rc, p, b)[0]))
+    micro = [{k: v[i] for k, v in jb.items()} for i in range(accum)] if accum > 1 else [jb]
+    gs = [jax.tree.leaves(grad(rp, mb)) for mb in micro]
+    return m, [sum(np.asarray(g[i]) for g in gs) / accum for i in range(len(gs[0]))]
+
+
+def test_data_parallel_step_on_8_gloo_ranks_matches_one_process_and_the_reference(tmp_path):
+    inp, ref_params, batches = {}, {}, {}
+    for arch in sorted({a for a, _ in DP_CASES.values()}):
+        rp, _ = RM.init_model(RC.smoke(RC.get_config(arch)), jax.random.PRNGKey(0))
+        ref_params[arch] = rp
+        host = jax.tree.map(np.asarray, rp)
+        inp.update({arch + ":p" + jax.tree_util.keystr(k): v
+                    for k, v in jax.tree_util.tree_flatten_with_path(host)[0]})
+    for case, (arch, accum) in DP_CASES.items():
+        batches[case] = dp_batch(RC.smoke(RC.get_config(arch)), case, accum)
+        inp.update({case + ":" + k: v for k, v in batches[case].items()})
+    np.savez(tmp_path / "inputs.npz", **inp)
+    (tmp_path / "rank.py").write_text(PORT_RANK % {"world": WORLD, "cases": DP_CASES})
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     procs = {f"rank{r}": subprocess.Popen(
         [sys.executable, str(tmp_path / "rank.py"), str(tmp_path / "inputs.npz"), str(tmp_path / "rank"),
@@ -235,10 +287,12 @@ def test_data_parallel_step_on_8_gloo_ranks_matches_one_process_and_the_referenc
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(WORLD)}
 
     # meanwhile: the single-process port and the reference on the whole batch
-    pp = params_from_reference(host, device="cpu")
-    one_p, _, one_m = make_train_step(pc, OptimizerConfig())(pp, make_opt_state(pp, OptimizerConfig()), batch)
-    _, _, ref_m = jax.jit(ref_train_step(rc, RO.OptimizerConfig()))(
-        rp, ref_opt_state(rp, RO.OptimizerConfig()), {k: jnp.asarray(v) for k, v in batch.items()})
+    rc, pc = RC.smoke(RC.get_config("qwen3-8b")), PC.smoke(PC.get_config("qwen3-8b"))
+    pp = params_from_reference(jax.tree.map(np.asarray, ref_params["qwen3-8b"]), device="cpu")
+    one_p, _, one_m = make_train_step(pc, OptimizerConfig())(pp, make_opt_state(pp, OptimizerConfig()),
+                                                             batches["ones"])
+    ref = {case: ref_whole_batch(RC.smoke(RC.get_config(arch)), ref_params[arch], batches[case], accum)
+           for case, (arch, accum) in DP_CASES.items()}
 
     for name, (rc_, text) in _finish(procs, TIMEOUT_S).items():
         assert rc_ == 0, f"{name} exited {rc_}:\n{text[-4000:]}"
@@ -249,10 +303,18 @@ def test_data_parallel_step_on_8_gloo_ranks_matches_one_process_and_the_referenc
     for r in range(1, WORLD):
         for k, v in ranks[0].items():
             assert ranks[r][k].tobytes() == v.tobytes(), (r, k)
-    loss = float(ranks[0]["loss"])
+    got = ranks[0]
+    for case in DP_CASES:  # the step's metrics first, then the gradients
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(got[case + ":" + k]), float(ref[case][0][k]), rtol=1e-5,
+                                       err_msg=(case, k))
+    for case, (arch, _) in DP_CASES.items():
+        names = [jax.tree_util.keystr(k) for k, _ in jax.tree_util.tree_flatten_with_path(ref_params[arch])[0]]
+        for name, want in zip(names, ref[case][1]):
+            np.testing.assert_allclose(got[case + ":g" + name], want, atol=5e-5, rtol=1e-5, err_msg=(case, name))
+    loss = float(got["ones:loss"])
     assert abs(loss - float(one_m["loss"])) <= 1e-5, (loss, float(one_m["loss"]))
-    assert abs(loss - float(ref_m["loss"])) < 5e-2, (loss, float(ref_m["loss"]))
-    np.testing.assert_allclose(float(ranks[0]["grad_norm"]), float(one_m["grad_norm"]), rtol=1e-5)
+    np.testing.assert_allclose(float(got["ones:grad_norm"]), float(one_m["grad_norm"]), rtol=1e-5)
     lr = float(one_m["lr"])
     for name, t in flatten_with_path(one_p):
-        assert np.abs(ranks[0]["p" + name] - t.numpy()).max() <= lr, name
+        assert np.abs(got["ones:p" + name] - t.numpy()).max() <= lr, name
