@@ -1,8 +1,10 @@
-"""Model stack of the port: the pattern-assembled transformers
-(``models.model``) of the dense, MoE and hybrid Mamba families, their
-training loss, attention, feed-forward, the capacity-routed experts
-(``models.moe``), the selective scan (``models.mamba``) and shared
-primitives."""
+"""Model stack of the port: the pattern-assembled models
+(``models.model``) of every family — dense, MoE, hybrid Mamba, RWKV-6,
+the whisper encoder-decoder and the pixtral vision frontend — their
+training loss, attention and cross-attention, feed-forward, the
+capacity-routed experts (``models.moe``), the selective scan
+(``models.mamba``), the RWKV-6 time and channel mix (``models.rwkv``) and
+shared primitives."""
 from repro_torch.models.model import (
     Model,
     decode_step,

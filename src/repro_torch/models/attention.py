@@ -1,16 +1,17 @@
-"""Grouped-query attention with the dense archs' variants.
+"""Grouped-query attention with the assigned archs' variants.
 
 Port of ``repro.models.attention``: GQA/MQA/MHA (kv groups), RoPE,
 qk-norm (qwen3), tanh logit softcapping and sliding-window local layers
-(gemma-2), and single-token decode against a KV cache.  Weights are
-head-major, ``(d, H, hd)``, as in the reference.
+(gemma-2), non-causal attention (the whisper encoder), cross-attention
+to encoder states (the whisper decoder), and single-token decode against
+a KV cache.  Weights are head-major, ``(d, H, hd)``, as in the reference.
 
 The KV cache is written in place: at ``[0, S)`` by :func:`prefill_attention`
 and at ``position`` by :func:`decode_attention_step` (the reference's
 ``dynamic_update_slice`` under ``donate_argnums``, start clamped to
 ``Smax - 1`` as XLA clamps it).  Both return the cache, as the reference
-does.  Cross-attention (whisper) waits for its slice (ROADMAP Queue 1
-item 7c).
+does.  Cross-attention's keys and values come from the encoder states,
+projected once a request (:func:`encode_cross_kv`) or at each call.
 """
 from __future__ import annotations
 
@@ -52,12 +53,12 @@ def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ cast(w, o.dtype).reshape(h * k, d)
 
 
-def _project_qkv(cfg, p, x, positions):
+def _project_qkv(cfg, p, x, positions, rope: bool):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.use_rope:
+    if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -67,21 +68,43 @@ def _window(cfg, kind: str) -> int | None:
     return cfg.sliding_window if kind == "local" else None
 
 
-def _attend(cfg, p, x, positions, kind: str):
-    """Causal attention over the whole sequence → ``(y, k, v)``."""
+def _attend(cfg, p, x, positions, kind: str, causal: bool, rope: bool):
+    """Attention over the whole sequence → ``(y, k, v)``."""
     B, S, _ = x.shape
     Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, positions, rope)
     out = chunked_attention(
-        q.reshape(B, S, Hkv, G, cfg.head_dim), k, v, causal=True,
+        q.reshape(B, S, Hkv, G, cfg.head_dim), k, v, causal=causal,
         window=_window(cfg, kind), logit_cap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
     )
     return _out(out.reshape(B, S, cfg.num_heads, cfg.head_dim), p["wo"]), k, v
 
 
-def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *, kind: str = "global") -> torch.Tensor:
-    """Full-sequence causal attention (train / eval).  x: ``(B, S, d)``."""
-    return _attend(cfg, p, x, positions, kind)[0]
+def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *, kind: str = "global",
+                    causal: bool = True, rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (train / eval; ``causal=False`` for the
+    encoder).  x: ``(B, S, d)``."""
+    return _attend(cfg, p, x, positions, kind, causal, rope)[0]
+
+
+def apply_cross_attention(cfg, p, x: torch.Tensor, enc_kv: tuple[torch.Tensor, torch.Tensor] | None,
+                          enc_states: torch.Tensor | None = None) -> torch.Tensor:
+    """Whisper-style cross-attention of the decoder stream x ``(B, S, d)``
+    to the encoder: keys and values ``enc_kv`` (from
+    :func:`encode_cross_kv`) or, when it is ``None``, projected from
+    ``enc_states``.  No RoPE, no qk-norm, no logit cap; not causal."""
+    B, S, _ = x.shape
+    Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q = _proj(x, p["wq"])
+    k, v = encode_cross_kv(cfg, p, enc_states) if enc_kv is None else enc_kv
+    out = chunked_attention(q.reshape(B, S, Hkv, G, cfg.head_dim), k, v, causal=False, q_chunk=cfg.attn_q_chunk)
+    return _out(out.reshape(B, S, cfg.num_heads, cfg.head_dim), p["wo"])
+
+
+def encode_cross_kv(cfg, p, enc_states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention's keys and values ``(B, S_enc, Hkv, hd)`` from the
+    encoder states, in their dtype: computed once a request (prefill)."""
+    return _proj(enc_states, p["wk"]), _proj(enc_states, p["wv"])
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -92,7 +115,7 @@ def init_kv_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=No
 
 def prefill_attention(cfg, p, x, positions, cache, *, kind: str = "global"):
     """Full-sequence attention that also fills the KV cache ``[0, S)``."""
-    y, k, v = _attend(cfg, p, x, positions, kind)
+    y, k, v = _attend(cfg, p, x, positions, kind, True, cfg.use_rope)
     S = x.shape[1]
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
@@ -105,7 +128,7 @@ def decode_attention_step(cfg, p, x, position: int, cache: dict, *, kind: str = 
     B = x.shape[0]
     Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     pos = torch.full((1,), position, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos)
+    q, k, v = _project_qkv(cfg, p, x, pos, cfg.use_rope)
     slot = min(max(position, 0), cache["k"].shape[1] - 1)  # XLA clamps the start
     cache["k"][:, slot:slot + 1] = k
     cache["v"][:, slot:slot + 1] = v

@@ -1,25 +1,34 @@
 """Model assembly: pattern-based layer stacks over stacked repeats.
 
-Port of ``repro.models.model`` for the dense, MoE and hybrid Mamba layer
-kinds (``attn+mlp``, ``local+mlp``, ``global+mlp``, ``attn+moe``,
-``mamba+mlp``, ``mamba+moe``): GQA and MHA, qk-norm, attention and final
-softcaps, the sliding window, ``embed_scale``, tied embeddings, the
-capacity-routed experts (``models.moe``) and the chunked selective scan
-(``models.mamba``).  A model is a repeating ``pattern`` of layer kinds
-whose parameters are stacked over ``repeats`` on a leading axis; the
-reference's ``jax.lax.scan`` over repeats is a Python loop here, repeat
-``r`` then pattern position ``i``, in the reference's order.
+Port of ``repro.models.model`` for every layer kind of the configs
+(``attn+mlp``, ``local+mlp``, ``global+mlp``, ``attn+moe``,
+``mamba+mlp``, ``mamba+moe``, ``rwkv``, ``attn+cross+mlp``): GQA and MHA,
+qk-norm, attention and final softcaps, the sliding window,
+``embed_scale``, tied embeddings, the capacity-routed experts
+(``models.moe``), the chunked selective scan (``models.mamba``), the
+RWKV-6 time and channel mix (``models.rwkv``), the whisper encoder with
+the decoder's cross-attention, and the vision frontend's patch
+embeddings prepended to the token stream.  A model is a repeating
+``pattern`` of layer kinds whose parameters are stacked over ``repeats``
+on a leading axis; the reference's ``jax.lax.scan`` over repeats is a
+Python loop here, repeat ``r`` then pattern position ``i``, in the
+reference's order.  An encoder-decoder config adds
+``params["encoder"]`` (``"blocks"``: one ``attn+mlp`` position stacked
+over ``encoder_layers``, and its ``"final_norm"``).
 
 Entry points, each taking the parameter tree (``init_model``'s, or
-``Model.params()``):
+``Model.params()``) and a batch of ``tokens`` (plus ``frames`` ``(B,
+encoder_seq, d)`` for an encoder-decoder config, and optionally
+``patch_embeds`` ``(B, P, d)`` for a vision config):
 
   * ``forward_hidden`` — the forward to the final norm, each layer under
     the config's ``remat_policy`` when autograd records it;
   * ``loss_fn``        — that forward, then the chunked cross-entropy
     against the (tied) unembedding: the training loss;
   * ``prefill``        — forward that fills the caches (KV for attention,
-    the SSM state and conv tail for Mamba), returns the last position's
-    logits;
+    the SSM state and conv tail for Mamba, the RWKV state and carried
+    tokens, the encoder's cross-attention keys and values), returns the
+    last position's logits;
   * ``decode_step``    — one token against the caches.
 
 Weights are cast to the compute dtype at each use, as in the reference,
@@ -38,9 +47,6 @@ Each MoE layer's aux losses are summed across layers in the reference's
 order; ``forward_hidden``'s aux also carries, for a model with MoE layers,
 ``"moe_layers"``: each MoE layer's aux in that order, whose sums the
 data-parallel train step reduces across ranks.
-
-The layer kinds ``rwkv`` and ``cross`` and the vision frontend raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7c).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (
     Init,
     cast,
@@ -69,21 +76,6 @@ from repro_torch.tree import leaves, tree_map, unflatten
 __all__ = [
     "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "loss_fn", "prefill",
 ]
-
-_PORTED = {"attn", "local", "global", "mlp", "moe", "mamba"}
-_TODO = "not ported yet (ROADMAP Queue 1 item 7c: the other model families)"
-
-
-def _check(cfg: ModelConfig, batch: dict | None = None) -> None:
-    """Raise on what the port does not run yet: never a fallback."""
-    for kind in cfg.pattern:
-        if not set(kind.split("+")) <= _PORTED:
-            raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is {_TODO}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is {_TODO}")
-    if batch is not None and "patch_embeds" in batch:
-        raise NotImplementedError(f"{cfg.name}: the vision frontend is {_TODO}")
-
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -116,9 +108,20 @@ def _apply_norm(cfg, p, x):
 
 
 def init_layer(cfg: ModelConfig, kind: str, rng: Init) -> dict:
+    if kind == "rwkv":
+        return {"ln1": _init_norm(cfg, rng), "tm": rwkv_mod.init_rwkv_time_mix(cfg, rng),
+                "ln2": _init_norm(cfg, rng), "cm": rwkv_mod.init_rwkv_channel_mix(cfg, rng)}
     parts = _parse(kind)
     params = {"ln1": _init_norm(cfg, rng)}
-    params["mixer"] = mamba_mod.init_mamba(cfg, rng) if parts[0] == "mamba" else attn_mod.init_attention(cfg, rng)
+    if parts[0] in ("attn", "local", "global"):
+        params["mixer"] = attn_mod.init_attention(cfg, rng)
+    elif parts[0] == "mamba":
+        params["mixer"] = mamba_mod.init_mamba(cfg, rng)
+    else:
+        raise ValueError(parts[0])
+    if "cross" in parts:
+        params["ln_x"] = _init_norm(cfg, rng)
+        params["cross"] = attn_mod.init_attention(cfg, rng)
     params["ln2"] = _init_norm(cfg, rng)
     if parts[-1] == "moe":
         params["ffn"] = moe_mod.init_moe(cfg, rng)
@@ -141,15 +144,30 @@ def _ffn(cfg, kind, p, x):
     return x + mlp_mod.apply_mlp(cfg, p["ffn"], h, gated=cfg.norm_type != "layernorm"), None
 
 
-def apply_layer_train(cfg, kind, p, x, positions):
+def _cross(cfg, p, x, enc_kv=None, enc_states=None):
+    """The decoder's cross-attention residual: ``x + cross(norm(x))``."""
+    return x + attn_mod.apply_cross_attention(cfg, p["cross"], _apply_norm(cfg, p["ln_x"], x), enc_kv, enc_states)
+
+
+def apply_layer_train(cfg, kind, p, x, positions, enc_states=None, *, causal: bool = True):
     """Pre-norm residual block (train / eval forward) → ``(x, the MoE
-    layer's aux or None)``."""
+    layer's aux or None)``; ``causal=False`` in the encoder."""
+    if kind == "rwkv":
+        h, _ = rwkv_mod.apply_rwkv_time_mix(cfg, p["tm"], _apply_norm(cfg, p["ln1"], x))
+        x = x + h
+        h, _ = rwkv_mod.apply_rwkv_channel_mix(cfg, p["cm"], _apply_norm(cfg, p["ln2"], x))
+        return x + h, None
+    parts = _parse(kind)
     h = _apply_norm(cfg, p["ln1"], x)
-    if _parse(kind)[0] == "mamba":
+    if parts[0] == "mamba":
         h, _ = mamba_mod.apply_mamba(cfg, p["mixer"], h)
     else:
-        h = attn_mod.apply_attention(cfg, p["mixer"], h, positions, kind=_mixer(kind))
-    return _ffn(cfg, kind, p, x + h)
+        h = attn_mod.apply_attention(cfg, p["mixer"], h, positions, kind=_mixer(kind), causal=causal,
+                                     rope=cfg.use_rope)
+    x = x + h
+    if "cross" in parts:
+        x = _cross(cfg, p, x, enc_states=enc_states)
+    return _ffn(cfg, kind, p, x)
 
 
 def _unstacked(tree) -> list:
@@ -172,21 +190,24 @@ def _layers(cfg, params, cache=None):
             yield kind, blocks[i][r], None if caches[i] is None else caches[i][r]
 
 
+_ENCODER = ("attn+mlp",)  # the encoder's one pattern position
+
+
 # ---------------------------------------------------------------------------
 # Model init
 # ---------------------------------------------------------------------------
 
 
-def _stacked_blocks(cfg, rng: Init) -> list[dict]:
+def _stacked_blocks(cfg, rng: Init, pattern: tuple, repeats: int) -> list[dict]:
     """Per pattern position, its ``repeats`` layers stacked on a leading
     axis, drawn layer by layer (the stack holds one layer more at most)."""
     blocks = []
-    for kind in cfg.pattern:
+    for kind in pattern:
         first = init_layer(cfg, kind, rng)
-        stacked = tree_map(lambda t: t.new_empty((cfg.repeats,) + t.shape), first)
+        stacked = tree_map(lambda t: t.new_empty((repeats,) + t.shape), first)
         tree_map(lambda s, t: s[0].copy_(t), stacked, first)
         del first
-        for r in range(1, cfg.repeats):
+        for r in range(1, repeats):
             tree_map(lambda s, t: s[r].copy_(t), stacked, init_layer(cfg, kind, rng))
         blocks.append(stacked)
     return blocks
@@ -194,11 +215,11 @@ def _stacked_blocks(cfg, rng: Init) -> list[dict]:
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *, device=None) -> dict:
     """The parameter tree in the reference's layout (``embed``,
-    ``blocks[i][...]`` stacked over ``repeats``, ``final_norm``, and
-    ``unembed`` unless embeddings are tied), float32, drawn from
-    ``generator`` (``None`` → seed 0) on ``device`` (``None`` → the
-    generator's device, or the card)."""
-    _check(cfg)
+    ``blocks[i][...]`` stacked over ``repeats``, ``final_norm``,
+    ``unembed`` unless embeddings are tied, and ``encoder`` for an
+    encoder-decoder config), float32, drawn from ``generator`` (``None`` →
+    seed 0) on ``device`` (``None`` → the generator's device, or the
+    card)."""
     if device is None and generator is not None:
         device = generator.device
     dev = resolve_device(device)
@@ -206,10 +227,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *, de
         generator = torch.Generator(device=dev).manual_seed(0)
     rng = Init(generator, dev)
     params = {"embed": rng.normal((cfg.vocab_size, cfg.d_model), 0.02)}
-    params["blocks"] = _stacked_blocks(cfg, rng)
+    params["blocks"] = _stacked_blocks(cfg, rng, cfg.pattern, cfg.repeats)
     params["final_norm"] = _init_norm(cfg, rng)
     if not cfg.tie_embeddings:
         params["unembed"] = rng.normal((cfg.vocab_size, cfg.d_model), 0.02)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {"blocks": _stacked_blocks(cfg, rng, _ENCODER, cfg.encoder_layers),
+                             "final_norm": _init_norm(cfg, rng)}
     return params
 
 
@@ -249,7 +273,6 @@ class Model(_Tree):
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None, device=None):
-        _check(cfg)
         super().__init__(params if params is not None else init_model(cfg, generator, device=device))
         self.cfg = cfg
 
@@ -280,10 +303,34 @@ def _positions(S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)
 
 
-def _add_sinusoid(cfg, x):
+def _stream(cfg, params, batch: dict):
+    """The decoder's input stream: the embedded tokens, after the patch
+    embeddings of a vision batch, plus sinusoidal positions without RoPE."""
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        x = torch.cat([as_tensor(batch["patch_embeds"], x.device).to(x.dtype), x], dim=1)
     if cfg.use_rope:
         return x
     return x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+
+
+def _run_encoder(cfg, params, frames):
+    """The whisper encoder over stub frame embeddings ``(B, S_enc, d)``:
+    sinusoidal positions, non-causal ``attn+mlp`` layers under the
+    config's ``remat_policy``, the encoder's final norm."""
+    dt = _compute_dtype(cfg)
+    frames = as_tensor(frames, params["embed"].device)
+    S = frames.shape[1]
+    x = frames.to(dt) + sinusoidal_positions(S, cfg.d_model, frames.device).to(dt)
+    positions = _positions(S, x.device)
+    layer = _remat(cfg, functools.partial(apply_layer_train, cfg, _ENCODER[0], causal=False))
+    for p in _unstacked(params["encoder"]["blocks"][0]):
+        x, _ = layer(p, x, positions)
+    return _apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _encoder_states(cfg, params, batch: dict):
+    return _run_encoder(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -311,14 +358,14 @@ def forward_hidden(cfg, params, batch: dict):
     load-balance and router-z losses summed over the layers (0-d float32
     zeros without MoE layers), and ``"moe_layers"`` where there are some
     (module docstring)."""
-    _check(cfg, batch)
-    x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
+    x = _stream(cfg, params, batch)
     positions = _positions(x.shape[1], x.device)
+    enc_states = _encoder_states(cfg, params, batch)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_load_balance": zero, "moe_router_z": zero}
     moe_layers = []
     for kind, p, _ in _layers(cfg, params):
-        x, a = _remat(cfg, functools.partial(apply_layer_train, cfg, kind))(p, x, positions)
+        x, a = _remat(cfg, functools.partial(apply_layer_train, cfg, kind, enc_states=enc_states))(p, x, positions)
         if a is not None:
             aux = {k: v + a[k] for k, v in aux.items()}
             moe_layers.append(a)
@@ -335,7 +382,8 @@ def moe_layer_count(cfg) -> int:
 
 def loss_fn(cfg, params, batch: dict):
     """Mean CE + MoE aux losses → ``(loss, {"ce", "moe_load_balance",
-    "moe_router_z"})``.  ``batch``: ``tokens``, ``targets``, ``mask``."""
+    "moe_router_z"})``.  ``batch``: ``tokens``, ``targets``, ``mask``
+    (and the frontend's ``frames`` or ``patch_embeds``)."""
     hidden, aux = forward_hidden(cfg, params, batch)
     unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
     dev = hidden.device
@@ -355,21 +403,33 @@ def loss_fn(cfg, params, batch: dict):
 # ---------------------------------------------------------------------------
 
 
+def _layer_cache(cfg, kind, batch: int, max_seq: int, dtype, device) -> dict:
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)
+    parts = _parse(kind)
+    if parts[0] == "mamba":
+        cache = {"ssm": mamba_mod.init_mamba_cache(cfg, batch, dtype, device)}
+    else:
+        cache = {"kv": attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)}
+    if "cross" in parts:
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> tuple:
     """Per pattern position, its caches stacked over ``repeats``, zeros on
     ``device`` (``None`` → the card): ``{"kv": {"k", "v"}}`` of
     ``(repeats, batch, max_seq, kv heads, head_dim)`` for attention,
-    ``{"ssm": {"h", "conv"}}`` for Mamba (``h`` float32 whatever
-    ``dtype``)."""
-    _check(cfg)
+    ``{"ssm": {"h", "conv"}}`` for Mamba, ``{"S", "x_tm", "x_cm"}`` for
+    RWKV (``h`` and ``S`` float32 whatever ``dtype``), and beside the KV a
+    cross layer's ``{"cross": {"k", "v"}}`` of ``(repeats, batch,
+    encoder_seq, kv heads, head_dim)``."""
     dev = resolve_device(device)
-
-    def stacked(tree):
-        return tree_map(lambda t: t.expand((cfg.repeats,) + t.shape).clone(), tree)
-
     return tuple(
-        {"ssm": stacked(mamba_mod.init_mamba_cache(cfg, batch, dtype, dev))} if _parse(kind)[0] == "mamba"
-        else {"kv": stacked(attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, dev))}
+        tree_map(lambda t: t.expand((cfg.repeats,) + t.shape).clone(),
+                 _layer_cache(cfg, kind, batch, max_seq, dtype, dev))
         for kind in cfg.pattern
     )
 
@@ -379,9 +439,27 @@ def _logits(cfg, params, x):
     return softcap(x.float() @ unemb.float().T, cfg.final_softcap)
 
 
-def _layer_prefill(cfg, kind, p, cache, x, positions):
+def _rwkv_layer(cfg, p, cache, x, decode: bool):
+    """An RWKV layer against its cache (written in place): from zeros in
+    prefill, from the carried state and tokens in decode."""
     h = _apply_norm(cfg, p["ln1"], x)
-    if _parse(kind)[0] == "mamba":
+    carry = dict(state=cache["S"], x_carry=cache["x_tm"].to(h.dtype)) if decode else {}
+    h, (S_f, x_tm) = rwkv_mod.apply_rwkv_time_mix(cfg, p["tm"], h, **carry)
+    x = x + h
+    h = _apply_norm(cfg, p["ln2"], x)
+    h, x_cm = rwkv_mod.apply_rwkv_channel_mix(cfg, p["cm"], h, cache["x_cm"].to(h.dtype) if decode else None)
+    cache["S"].copy_(S_f)
+    cache["x_tm"].copy_(x_tm)
+    cache["x_cm"].copy_(x_cm)
+    return x + h
+
+
+def _layer_prefill(cfg, kind, p, cache, x, positions, enc_states):
+    if kind == "rwkv":
+        return _rwkv_layer(cfg, p, cache, x, decode=False)
+    parts = _parse(kind)
+    h = _apply_norm(cfg, p["ln1"], x)
+    if parts[0] == "mamba":
         ssm = cache["ssm"]
         conv_tail = (h @ cast(p["mixer"]["wx"], h.dtype))[:, -(cfg.mamba_d_conv - 1):]  # pre-conv rows
         h, h_final = mamba_mod.apply_mamba(cfg, p["mixer"], h)
@@ -389,38 +467,50 @@ def _layer_prefill(cfg, kind, p, cache, x, positions):
         ssm["conv"].copy_(conv_tail)
     else:
         h, _ = attn_mod.prefill_attention(cfg, p["mixer"], h, positions, cache["kv"], kind=_mixer(kind))
-    return _ffn(cfg, kind, p, x + h)[0]
+    x = x + h
+    if "cross" in parts:  # the encoder's keys and values, once a request
+        ck, cv = attn_mod.encode_cross_kv(cfg, p["cross"], enc_states)
+        cache["cross"]["k"].copy_(ck)
+        cache["cross"]["v"].copy_(cv)
+        x = _cross(cfg, p, x, enc_kv=(ck, cv))
+    return _ffn(cfg, kind, p, x)[0]
 
 
 def prefill(cfg, params, batch: dict, cache: tuple):
-    """Process the whole prompt, fill the caches in place (KV at ``[0,
-    S)``, the SSM state and conv tail), return ``(last-position logits
-    (B, 1, V), cache)``."""
-    _check(cfg, batch)
-    x = _add_sinusoid(cfg, _embed_tokens(cfg, params, batch["tokens"]))
+    """Process the whole prompt (after its patch embeddings), fill the
+    caches in place (KV at ``[0, S)``, the SSM state and conv tail, the
+    RWKV state and last tokens, the cross-attention keys and values),
+    return ``(last-position logits (B, 1, V), cache)``."""
+    x = _stream(cfg, params, batch)
     positions = _positions(x.shape[1], x.device)
+    enc_states = _encoder_states(cfg, params, batch)
     for kind, p, c in _layers(cfg, params, cache):
-        x = _layer_prefill(cfg, kind, p, c, x, positions)
+        x = _layer_prefill(cfg, kind, p, c, x, positions, enc_states)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
     return _logits(cfg, params, x), cache
 
 
 def _layer_decode(cfg, kind, p, cache, x, pos: int):
+    if kind == "rwkv":
+        return _rwkv_layer(cfg, p, cache, x, decode=True)
+    parts = _parse(kind)
     h = _apply_norm(cfg, p["ln1"], x)
-    if _parse(kind)[0] == "mamba":
+    if parts[0] == "mamba":
         h, new = mamba_mod.decode_mamba_step(cfg, p["mixer"], h, cache["ssm"])
         for key, t in new.items():
             cache["ssm"][key].copy_(t)
     else:
         h, _ = attn_mod.decode_attention_step(cfg, p["mixer"], h, pos, cache["kv"], kind=_mixer(kind))
-    return _ffn(cfg, kind, p, x + h)[0]
+    x = x + h
+    if "cross" in parts:
+        x = _cross(cfg, p, x, enc_kv=(cache["cross"]["k"].to(h.dtype), cache["cross"]["v"].to(h.dtype)))
+    return _ffn(cfg, kind, p, x)[0]
 
 
 def decode_step(cfg, params, cache: tuple, token, pos: int):
     """token: ``(B, 1)`` ids; pos: the host index of that token →
     ``(logits (B, 1, V), cache)``, the caches written in place (KV at
     ``pos``)."""
-    _check(cfg)
     pos = int(pos)
     x = _embed_tokens(cfg, params, token)
     if not cfg.use_rope:

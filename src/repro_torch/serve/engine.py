@@ -10,8 +10,10 @@ ad-hoc max.  On the card, the summaries are the row-sort kernel
 
 The engine runs on the card unless ``device="cpu"`` is given; without a
 card it raises.  It holds the parameters on its device and, for a
-bfloat16 config, one compute-dtype copy of the block weights, made once:
-the bits the reference gets by casting at every use.
+bfloat16 config, one compute-dtype copy of the block weights (the
+encoder's too), made once: the bits the reference gets by casting at
+every use.  An encoder-decoder config generates from zero ``frames``, as
+the reference does.
 
 Copied from the reference on purpose (ROADMAP Queue 3): a ragged batch is
 right-padded with token 0, every row samples its first new token at
@@ -35,9 +37,10 @@ from repro_torch.tree import tree_map
 __all__ = ["Engine", "ServeConfig"]
 
 # the block leaves the reference casts to the compute dtype at each use
-# (the experts' too); the router, A_log, D and dt_bias it uses in float32
+# (the experts', the cross-attention's and the RWKV projections' too); the
+# router, A_log, D, dt_bias and RWKV's wA, wB, w0, u, mix_* it uses in float32
 _CAST = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "b_up", "b_down",
-         "wx", "wz", "conv_w", "conv_b", "w_dbc", "w_dt", "w_out"}
+         "wx", "wz", "conv_w", "conv_b", "w_dbc", "w_dt", "w_out", "wr", "wg"}
 
 
 @dataclasses.dataclass
@@ -71,7 +74,10 @@ class Engine:
         self.device = resolve_device(device)
         with torch.no_grad():
             self.params = tree_map(lambda t: as_tensor(t, self.device).detach(), params)
-            self._run = dict(self.params, blocks=_compute_copy(self.params["blocks"], _compute_dtype(cfg)))
+            self._run = dict(self.params)
+            for key in ("blocks", "encoder"):  # the norms in them stay float32
+                if key in self.params:
+                    self._run[key] = _compute_copy(self.params[key], _compute_dtype(cfg))
 
     def _pad_batch(self, prompts: Sequence[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
         B = len(prompts)
@@ -94,7 +100,10 @@ class Engine:
         B, L = toks.shape
         dtype = torch.float32 if scfg.cache_dtype == "float32" else torch.bfloat16
         cache = init_cache(cfg, B, scfg.max_seq, dtype=dtype, device=self.device)
-        logits, cache = prefill(cfg, self._run, {"tokens": as_tensor(toks, self.device)}, cache)
+        batch = {"tokens": as_tensor(toks, self.device)}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=torch.float32, device=self.device)
+        logits, cache = prefill(cfg, self._run, batch, cache)
         if generator is None and scfg.temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = [list(p) for p in prompts]
@@ -123,8 +132,10 @@ class Engine:
     # ---- histogram-calibrated quantization --------------------------------
     @torch.no_grad()
     def calibration_values(self, batch: dict) -> torch.Tensor:
-        """|final hidden| of one calibration batch, flat, float32."""
-        hidden, _ = forward_hidden(self.cfg, self._run, {"tokens": as_tensor(batch["tokens"], self.device)})
+        """|final hidden| of one calibration batch (``tokens``, and the
+        frontend's ``frames`` or ``patch_embeds`` where it has them),
+        flat, float32."""
+        hidden, _ = forward_hidden(self.cfg, self._run, {k: as_tensor(v, self.device) for k, v in batch.items()})
         return torch.abs(hidden).reshape(-1).float()
 
     def calibrate(

@@ -63,9 +63,12 @@ def forced_agreement(eng, prompts, outs) -> int | None:
     toks, _ = eng._pad_batch(prompts)
     B, L = toks.shape
     cache = PM.init_cache(cfg, B, scfg.max_seq, torch.float32, CPU)
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:  # the engine's zero frames
+        batch["frames"] = np.zeros((B, cfg.encoder_seq, cfg.d_model), np.float32)
     uncertain = None
     with torch.no_grad():
-        logits, cache = PM.prefill(cfg, eng._run, {"tokens": toks}, cache)
+        logits, cache = PM.prefill(cfg, eng._run, batch, cache)
         for step in range(max(len(o) - len(p) for o, p in zip(outs, prompts))):
             last = logits[:, -1]
             top = torch.topk(last, 2).values
@@ -82,7 +85,8 @@ def forced_agreement(eng, prompts, outs) -> int | None:
     return uncertain
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b", "dbrx-132b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b", "dbrx-132b", "jamba-v0.1-52b", "rwkv6-7b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_greedy_generate_matches_the_reference(arch):
     ref, port = engines(arch, max_seq=48, max_new_tokens=8)
     prompts = prompts_of(ref.cfg, (5, 9, 12))
@@ -93,6 +97,16 @@ def test_greedy_generate_matches_the_reference(arch):
         n = len(w) if upto is None else len(p) + upto
         assert g.dtype == np.int32 and np.array_equal(g[:n], w[:n])
     assert upto is None  # no near-tie in these cases: the whole sequences agree
+
+
+def test_engine_generate_ssm_arch():
+    """The mirror of ``tests/test_trainer_serve.py``'s case: RWKV-6's O(1)
+    state through the engine, and the same tokens as the reference's."""
+    ref, port = engines("rwkv6-7b", max_seq=32, max_new_tokens=4)
+    prompt = [np.arange(2, 8, dtype=np.int32)]
+    outs = port.generate(prompt)
+    assert len(outs[0]) >= 7
+    np.testing.assert_array_equal(outs[0], ref.generate(prompt)[0])
 
 
 def test_greedy_generate_is_deterministic():
@@ -159,6 +173,37 @@ def test_calibrate_matches_the_reference():
     assert float(PH.quantile(pm, np.float32(0.999))) == float(RH.quantile(rm, jnp.float32(0.999)))
 
 
+@pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-medium"])
+def test_calibrate_passes_the_frontend_inputs(arch):
+    """``calibrate`` on batches carrying ``patch_embeds`` (the patch
+    positions among the calibration values) or ``frames`` equals the
+    reference's."""
+    ref, port = engines(arch)
+    cfg = ref.cfg
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(2):
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+        if cfg.frontend == "vision":
+            b["patch_embeds"] = rng.normal(size=(2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.is_encoder_decoder:
+            b["frames"] = rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batches.append(b)
+    want = ref.calibrate([{k: jnp.asarray(v) for k, v in b.items()} for b in batches], q=0.999, T=256)
+    got = port.calibrate(batches, q=0.999, T=256)
+    stream = 16 + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    assert got["n_calibration_values"] == want["n_calibration_values"] == 2 * 2 * stream * cfg.d_model
+    assert got["rank_error_bound"] == want["rank_error_bound"]
+    assert got["clip"] == pytest.approx(want["clip"], rel=1e-5) and got["clip"] > 0
+    # the frontend's inputs reach the forward: without them the values differ
+    bare = port.calibration_values({"tokens": batches[0]["tokens"]}) if cfg.frontend == "vision" else None
+    if bare is not None:
+        assert bare.numel() == 2 * 16 * cfg.d_model
+    else:
+        other = dict(batches[0], frames=batches[0]["frames"] + 1.0)
+        assert not torch.equal(port.calibration_values(other), port.calibration_values(batches[0]))
+
+
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     cfg = PC.smoke(PC.get_config("smollm-135m"))
     params = PM.init_model(cfg, device=CPU)
@@ -196,11 +241,12 @@ def test_launcher_prints_what_the_reference_prints(tmp_path, monkeypatch, capsys
     assert np.array_equal(np.asarray(hp.sizes), np.asarray(hr.sizes))
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b", "rwkv6-7b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_launcher_serves_the_moe_and_hybrid_smoke_configs(arch, monkeypatch, capsys):
-    """``--arch <moe or hybrid> --smoke`` on the CPU prints the reference
-    launcher's lines (token values blanked: each package draws its own
-    weights)."""
+    """``--arch <moe, hybrid, rwkv, encoder-decoder or vision> --smoke`` on
+    the CPU prints the reference launcher's lines (token values blanked:
+    each package draws its own weights)."""
     flags = ["--arch", arch, "--smoke", "--batch", "2", "--max-new-tokens", "3"]
     monkeypatch.setattr(sys, "argv", ["serve", *flags])
     R_launch.main()

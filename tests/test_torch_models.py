@@ -1,10 +1,12 @@
 """The port's model stack (``repro_torch.models``, ``repro_torch.configs``)
 against the reference's — the port's mirror of ``tests/test_models.py``
-for the dense, MoE and hybrid Mamba families.
+for every family: dense, MoE, hybrid Mamba, RWKV-6, the whisper
+encoder-decoder and the pixtral vision frontend.
 
 Both packages run the same parameters (the reference's ``init_model``,
 carried across bit for bit by ``convert.params_from_reference``) on the
-same seeded NumPy tokens, on the CPU, in float32 (the smoke configs).
+same seeded NumPy batches (``make_batch``: tokens, and the frontend's
+frames or patch embeddings), on the CPU, in float32 (the smoke configs).
 
 Tolerance: hidden states, logits and caches within ``atol=5e-5,
 rtol=1e-5`` (float32; XLA and torch order their reductions and matmul
@@ -31,8 +33,7 @@ from repro_torch.models import common as PMC
 from repro_torch.tree import flatten_with_path, leaves
 
 CPU = torch.device("cpu")
-DENSE = ["smollm-135m", "qwen3-8b", "deepseek-7b", "gemma2-9b"]
-MOE_HYBRID = ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"]
+ARCHS = RC.list_archs()
 ATOL, RTOL = 5e-5, 1e-5
 
 
@@ -56,8 +57,36 @@ def shared_params(rc, seed: int = 0):
     return rp, params_from_reference(jax.tree.map(np.asarray, rp), device=CPU)
 
 
+def make_batch(cfg, B: int, S: int, seed: int = 1) -> dict:
+    """``tests/test_models.py``'s ``make_batch`` from a NumPy seed: a
+    stream of S positions (the vision frontend's patches among them),
+    ``targets`` and ``mask`` over all S, and ``frames`` for an
+    encoder-decoder config."""
+    rng = np.random.default_rng(seed)
+    s_text = S - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    batch = {
+        "tokens": rng.integers(0, cfg.vocab_size, (B, s_text)).astype(np.int32),
+        "targets": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+        "mask": np.ones((B, S), np.float32),
+    }
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = rng.normal(size=(B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def tokens(cfg, B: int, S: int, seed: int = 1) -> np.ndarray:
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return make_batch(cfg, B, S, seed)["tokens"]
+
+
+def prefix(batch: dict) -> dict:
+    """The batch without its last token (the frontend's inputs kept)."""
+    return dict(batch, tokens=batch["tokens"][:, :-1])
+
+
+def ref_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +116,7 @@ def test_registry_and_shapes_equal_the_reference():
     assert PC.config().name == "paper-logstats" and PC.LogStatsConfig().beta == 254
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_names_shapes_dtypes_equal_the_reference(arch):
     rc, pc = both_configs(arch)
     rp, _ = RM.init_model(rc, jax.random.PRNGKey(0))
@@ -141,7 +170,11 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 # sinusoidal and GELU paths); deepseek at an S that q_chunk 16 does not
 # divide; dbrx at an S that the MoE group of 16 does not divide (a padded
 # group), llama4's dense and MoE layers (top-1), jamba's hybrid block at
-# S = 17 (two Mamba chunks of 8 and a tail of 1)
+# S = 17 (two Mamba chunks of 8 and a tail of 1); rwkv6 at S = 17 (two
+# chunks of 8 and a tail of 1); whisper over 20 frames, which q_chunk 16
+# does not divide (the encoder's and the cross-attention's padded query
+# chunks run over them), at S = 21; pixtral's 8 patches ahead of 16 text
+# tokens
 CASES = [
     ("smollm-135m", {}, 24),
     ("qwen3-8b", {}, 32),
@@ -151,6 +184,9 @@ CASES = [
     ("dbrx-132b", {}, 20),
     ("llama4-maverick-400b-a17b", {}, 32),
     ("jamba-v0.1-52b", {}, 17),
+    ("rwkv6-7b", {}, 17),
+    ("whisper-medium", {"encoder_seq": 20}, 21),
+    ("pixtral-12b", {}, 24),
 ]
 
 
@@ -158,11 +194,12 @@ CASES = [
 def test_forward_prefill_decode_match_the_reference(arch, changes, S):
     rc, pc = both_configs(arch, **changes)
     rp, pp = shared_params(rc)
-    toks = tokens(rc, 2, S + 1)
+    full = make_batch(rc, 2, S + 1)
+    batch, last = prefix(full), full["tokens"][:, -1:]
     B, Smax = 2, S + 8
     with torch.no_grad():
-        rh, raux = RM.forward_hidden(rc, rp, {"tokens": jnp.asarray(toks[:, :S])})
-        ph, aux = PM.forward_hidden(pc, pp, {"tokens": toks[:, :S]})
+        rh, raux = RM.forward_hidden(rc, rp, ref_batch(batch))
+        ph, aux = PM.forward_hidden(pc, pp, batch)
         assert ph.shape == (B, S, rc.d_model)
         close(ph, rh)
         assert ("moe_layers" in aux) == bool(rc.num_experts)
@@ -172,9 +209,9 @@ def test_forward_prefill_decode_match_the_reference(arch, changes, S):
             assert (float(aux[key]) > 0) == bool(rc.num_experts)
 
         rcache, _ = RM.init_cache(rc, B, Smax, dtype=jnp.float32)
-        rl, rcache = RM.prefill(rc, rp, {"tokens": jnp.asarray(toks[:, :S])}, rcache)
+        rl, rcache = RM.prefill(rc, rp, ref_batch(batch), rcache)
         pcache = PM.init_cache(pc, B, Smax, torch.float32, CPU)
-        pl, pcache_out = PM.prefill(pc, pp, {"tokens": toks[:, :S]}, pcache)
+        pl, pcache_out = PM.prefill(pc, pp, batch, pcache)
         assert pcache_out is pcache and pl.shape == (B, 1, rc.vocab_size)
         close(pl, rl)
         ref_leaves = jax.tree.leaves(rcache)
@@ -182,10 +219,11 @@ def test_forward_prefill_decode_match_the_reference(arch, changes, S):
         for got, want in zip(leaves(pcache), ref_leaves):
             close(got, want)
 
-        # decode from the reference's own cache, so only the step differs
-        rl2, rcache2 = RM.decode_step(rc, rp, rcache, jnp.asarray(toks[:, S:]), jnp.int32(S))
+        # decode from the reference's own cache, so only the step differs; the
+        # position is the length of the whole stream, the patches included
+        rl2, rcache2 = RM.decode_step(rc, rp, rcache, jnp.asarray(last), jnp.int32(S))
         start = cache_from_reference(jax.tree.map(np.asarray, rcache), device=CPU)
-        pl2, pcache2 = PM.decode_step(pc, pp, start, toks[:, S:], S)
+        pl2, pcache2 = PM.decode_step(pc, pp, start, last, S)
         close(pl2, rl2)
         for got, want in zip(leaves(pcache2), jax.tree.leaves(rcache2)):
             close(got, want)
@@ -235,22 +273,24 @@ def test_attention_cores_match_the_reference(window, cap):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(arch):
     """prefill(x[:S]) + decode(x[S]) == prefill(x[:S+1]): the caches (KV,
-    SSM state and conv tail).  MoE runs dropless, as the reference test
-    does: capacity routing legitimately drops other tokens when decode
-    folds the batch into one group."""
+    SSM state and conv tail, RWKV state and token shifts, the encoder's
+    cross-attention keys and values) and, for pixtral, decode's position
+    counting the patches.  MoE runs dropless, as the reference test does:
+    capacity routing legitimately drops other tokens when decode folds the
+    batch into one group."""
     cfg = PC.smoke(PC.get_config(arch))
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=16.0)
     params = PM.init_model(cfg, torch.Generator().manual_seed(1))
     B, S = 2, 16
-    toks = tokens(cfg, B, S + 1, seed=3)
+    batch = make_batch(cfg, B, S + 1, seed=3)
     with torch.no_grad():
-        full, _ = PM.prefill(cfg, params, {"tokens": toks}, PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
-        _, cache = PM.prefill(cfg, params, {"tokens": toks[:, :-1]}, PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
-        step, _ = PM.decode_step(cfg, params, cache, toks[:, -1:], S)
+        full, _ = PM.prefill(cfg, params, batch, PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
+        _, cache = PM.prefill(cfg, params, prefix(batch), PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
+        step, _ = PM.decode_step(cfg, params, cache, batch["tokens"][:, -1:], S)
     np.testing.assert_allclose(step.numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
 
 
@@ -268,30 +308,42 @@ def test_local_window_masks_differ_from_global():
     assert not torch.allclose(local[:, 32:], wide[:, 32:])
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-medium"])
-def test_unported_kinds_raise(arch):
-    cfg = PC.smoke(PC.get_config(arch))
-    dense = PC.smoke(PC.get_config("qwen3-8b"))
-    params = PM.init_model(dense, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
-        PM.init_model(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
-        PM.init_cache(cfg, 1, 8, device=CPU)
-    for fn in (lambda: PM.forward_hidden(cfg, params, {"tokens": np.zeros((1, 4), np.int32)}),
-               lambda: PM.decode_step(cfg, params, (), np.zeros((1, 1), np.int32), 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7c"):
-            fn()
+def test_whisper_prefill_caches_the_encoder_once_and_decode_reads_it_back():
+    """``prefill`` runs the encoder once and writes each cross layer's
+    keys and values of its states into the cache; ``decode_step`` takes
+    no frames and attends to what the cache holds, and leaves it as it
+    was."""
+    cfg = dataclasses.replace(PC.smoke(PC.get_config("whisper-medium")), encoder_seq=20)
+    params = PM.init_model(cfg, torch.Generator().manual_seed(5))
+    batch = make_batch(cfg, 2, 13, seed=6)
+    calls = {"n": 0}
+    real = PM.model._run_encoder
 
+    def counted(*args):
+        calls["n"] += 1
+        return real(*args)
 
-def test_vision_frontend_raises():
-    cfg = PC.smoke(PC.get_config("pixtral-12b"))
-    params = PM.init_model(cfg, device=CPU)
-    batch = {"tokens": np.zeros((1, 4), np.int32),
-             "patch_embeds": np.zeros((1, cfg.frontend_tokens, cfg.d_model), np.float32)}
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        PM.forward_hidden(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        PM.prefill(cfg, params, batch, PM.init_cache(cfg, 1, 8, torch.float32, CPU))
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PM.model, "_run_encoder", counted)
+        enc = real(cfg, params, batch["frames"])
+        cache = PM.init_cache(cfg, 2, 24, torch.float32, CPU)
+        _, cache = PM.prefill(cfg, params, prefix(batch), cache)
+        assert calls["n"] == 1
+        cross = cache[0]["cross"]
+        assert tuple(cross["k"].shape) == (cfg.repeats, 2, 20, cfg.num_kv_heads, cfg.head_dim)
+        for r, p in enumerate(PM.model._unstacked(params["blocks"][0])):
+            k, v = PM.attention.encode_cross_kv(cfg, p["cross"], enc)
+            assert torch.equal(cross["k"][r], k) and torch.equal(cross["v"][r], v)
+        kept = {k: t.clone() for k, t in cross.items()}
+        step, cache = PM.decode_step(cfg, params, cache, batch["tokens"][:, -1:], 12)
+        assert calls["n"] == 1 and all(torch.equal(cross[k], kept[k]) for k in kept)
+        full, _ = PM.prefill(cfg, params, batch, PM.init_cache(cfg, 2, 24, torch.float32, CPU))
+        np.testing.assert_allclose(step.numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
+        # decode's cross-attention reads the cache: other values there move its logits
+        _, other = PM.prefill(cfg, params, prefix(batch), PM.init_cache(cfg, 2, 24, torch.float32, CPU))
+        other[0]["cross"]["v"].mul_(-1.0)
+        moved, _ = PM.decode_step(cfg, params, other, batch["tokens"][:, -1:], 12)
+    assert not torch.allclose(moved, step, atol=1e-3)
 
 
 def test_model_module_forward_is_forward_hidden():
@@ -304,7 +356,7 @@ def test_model_module_forward_is_forward_hidden():
         assert torch.equal(model({"tokens": toks}), PM.forward_hidden(cfg, model.params(), {"tokens": toks})[0])
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_logits_sit_as_far_from_float32_as_the_references(arch):
     """bfloat16 compute (and jamba's bfloat16 scan), dropless: the port's
     last-position logits sit no farther (rms, by row) from the reference's
@@ -313,25 +365,62 @@ def test_bf16_logits_sit_as_far_from_float32_as_the_references(arch):
     fuses elementwise chains and rounds ``silu`` otherwise); measured:
     jamba 0.028–0.044 against the reference's 0.031–0.048 (its Mamba
     decays amplify bfloat16's rounding of Δ), dbrx 0.011–0.015 against
-    0.009–0.016."""
+    0.009–0.016, rwkv6 0.010–0.020 against 0.013–0.021 (its float32
+    recurrence reads bfloat16 r, k, v), whisper 0.005–0.006 against
+    0.005–0.006 (frames from the batch), pixtral 0.009–0.013 against
+    0.009–0.013 (bfloat16 patches ahead of the text)."""
     ch = dict(compute_dtype="bfloat16", mamba_scan_dtype="bfloat16", moe_capacity_factor=16.0)
     rc, pc = both_configs(arch, **ch)
     rc32 = dataclasses.replace(rc, compute_dtype="float32", mamba_scan_dtype="float32")
     rp, pp = shared_params(rc32)
-    toks = tokens(rc, 4, 128, seed=0)
+    batch = make_batch(rc, 4, 128, seed=0)
 
     def ref(c):
         cache, _ = RM.init_cache(c, 4, 128, dtype=jnp.float32)
-        logits, _ = jax.jit(lambda p, b, cc: RM.prefill(c, p, b, cc))(rp, {"tokens": jnp.asarray(toks)}, cache)
+        logits, _ = jax.jit(lambda p, b, cc: RM.prefill(c, p, b, cc))(rp, ref_batch(batch), cache)
         return np.asarray(logits[:, -1]).astype(np.float64)
 
     r16, r32 = ref(rc), ref(rc32)
     run = PS.Engine(pc, pp, PS.ServeConfig(), device=CPU)._run  # the bf16 copy of the block weights
     with torch.no_grad():
-        p16, _ = PM.prefill(pc, run, {"tokens": toks}, PM.init_cache(pc, 4, 128, torch.float32, CPU))
+        p16, _ = PM.prefill(pc, run, batch, PM.init_cache(pc, 4, 128, torch.float32, CPU))
     p16 = p16[:, -1].double().numpy()
 
     def gaps(x):
         return np.sqrt(np.mean((x - r32) ** 2, axis=-1) / np.mean(r32**2, axis=-1))
 
     assert np.all(gaps(p16) <= 1.5 * gaps(r16).max()), (gaps(p16), gaps(r16))
+
+
+def test_bf16_rwkv_at_full_depth_sits_as_far_from_float32_as_the_reference():
+    """RWKV-6's 32 layers at smoke width, 4 × 64, bfloat16 compute: the
+    port's last-position logits sit no farther (rms and max, by row) from
+    the reference's float32 logits than 1.5× the farthest of the
+    reference's own bfloat16 rows.  Here the reference's own sit 0.16–0.29
+    (rms) and 0.52–1.11 (max) of the float32 rms away, ten times the
+    2-layer gap: the float32 recurrence reads bfloat16 r, k, v and mixes
+    32 times over (measured: the port's 0.18–0.32 and 0.57–0.95).
+    ``chip_smoke.py`` holds the full-width model to the same bounds."""
+    rc, pc = both_configs("rwkv6-7b", compute_dtype="bfloat16", repeats=32)
+    rc32 = dataclasses.replace(rc, compute_dtype="float32")
+    rp, pp = shared_params(rc32)
+    batch = make_batch(rc, 4, 64, seed=0)
+
+    def ref(c):
+        cache, _ = RM.init_cache(c, 4, 64, dtype=jnp.float32)
+        logits, _ = jax.jit(lambda p, b, cc: RM.prefill(c, p, b, cc))(rp, ref_batch(batch), cache)
+        return np.asarray(logits[:, -1]).astype(np.float64)
+
+    r16, r32 = ref(rc), ref(rc32)
+    run = PS.Engine(pc, pp, PS.ServeConfig(), device=CPU)._run
+    with torch.no_grad():
+        p16, _ = PM.prefill(pc, run, batch, PM.init_cache(pc, 4, 64, torch.float32, CPU))
+    p16 = p16[:, -1].double().numpy()
+    scale = np.sqrt(np.mean(r32**2, axis=-1))
+
+    def gaps(x):
+        return np.sqrt(np.mean((x - r32) ** 2, axis=-1)) / scale, np.abs(x - r32).max(axis=-1) / scale
+
+    (prms, pmax), (rrms, rmax) = gaps(p16), gaps(r16)
+    assert rrms.max() > 0.1  # the reference's own gap at this depth
+    assert np.all(prms <= 1.5 * rrms.max()) and np.all(pmax <= 1.5 * rmax.max()), (prms, rrms, pmax, rmax)

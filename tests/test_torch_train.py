@@ -76,13 +76,24 @@ def ref_params(rc, seed: int = 0):
 
 
 def lm_batch(cfg, shape, seed: int = 1, ragged_mask: bool = True) -> dict:
+    """Tokens, targets and mask of ``shape`` (the stream's), plus the
+    frontend's inputs: a vision config's patch embeddings take the first
+    ``frontend_tokens`` positions from the tokens, an encoder-decoder
+    config gets frames."""
     rng = np.random.default_rng(seed)
     mask = (rng.random(shape) > 0.2) if ragged_mask else np.ones(shape, bool)
-    return {
+    batch = {
         "tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
         "targets": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
         "mask": mask.astype(np.float32),
     }
+    lead = tuple(shape[:-1])
+    if cfg.frontend == "vision":
+        batch["tokens"] = batch["tokens"][..., cfg.frontend_tokens:]
+        batch["patch_embeds"] = rng.normal(size=lead + (cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=lead + (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def port_value_and_grad(pc, params, batch):
@@ -135,10 +146,13 @@ def test_chunked_softmax_xent_value_and_grad_match_the_reference(final_cap):
         PM.chunked_softmax_xent(h, u, torch.from_numpy(targets), torch.from_numpy(mask), s_chunk=20)
 
 
-@pytest.mark.parametrize("arch", DENSE + ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", RC.list_archs())
 def test_loss_and_grads_match_the_reference(arch):
     """The loss, its MoE terms (0 for the dense archs) and every gradient
-    leaf: the router, the experts and the Mamba mixer's included."""
+    leaf: the router, the experts, the Mamba mixer's, the RWKV time and
+    channel mix's, the whisper encoder's and cross-attention's (the frames
+    from the batch) included; pixtral's loss runs over its patch positions
+    too, as the reference's does."""
     rc, pc = both_configs(arch)
     rp, pp = ref_params(rc)
     batch = lm_batch(rc, (2, 32))
