@@ -126,21 +126,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    steps and ``calibrate`` of 2 × (2, 512) tokens (with frames or
    patches); the three smoke configs card against CPU with a train step
    each; the serve launcher at smoke width;
+14. the dry-run against the card (``launch.dryrun``, ``launch.dryrun_core``,
+   ``examples``; before phase 7 too): a. the dry-run's record of SmolLM-135M
+   train 16 × 2,048 (phase 11's shape) and of Qwen3-8B prefill 4 × 512
+   (phase 10's) on a 1 × 1 stand-in mesh, then their arguments made on the
+   card, their bytes equal to the predicted ``argument_size_in_bytes``
+   group by group; b. one real step's peak memory beside the predicted
+   peak (the tolerance above ``PEAK_TOL_REL``; a miss is printed) and its
+   time beside ``roofline_step_s`` and this script's own bound; c.
+   ``dryrun_core``'s ``merge`` at one device's share (2^22 values) through
+   ``distributed_histogram`` on an NCCL group of one rank, bit-equal to
+   the world-1 composition run on the CPU, its time beside the predicted
+   kernel bound; d. each example's ``main`` on the card at its smoke size,
+   its printout held line by line to a run with ``device="cpu"``
+   (``EXAMPLE_MODEL_TOL``, ``DRAWN_ON_DEVICE``), and the quickstart's row sorts, merge and
+   bucket count at its shapes bit-equal to their plain versions;
 7. the merge at every ``(Q, k, T+1, β)`` that ``merge_batched`` saw in
-   phases 3–6 and 8–13, in each regime that holds it: device µs a call by
+   phases 3–6 and 8–14, in each regime that holds it: device µs a call by
    item, wall µs and launches a call (the shapes also go to
    ``build/merge_shapes.json`` for ``scripts/merge_sweep.py``);
 then the report: the kernels JSON line, throughput/latency, the card.
 
-Phases 3, 5, 6, 8, 9, 10, 11, 12 and 13 are the main paths: each is run with
+Phases 3, 5, 6, 8, 9, 10, 11, 12, 13 and 14 are the main paths: each is run with
 the launch counts set to 0 just before it and read just after, and fails
 unless every kernel of its path was launched (phase 9: the row sort, the
 kv sort and the merge; phase 10: the row sort and the merge, counted over
 ``calibrate`` and the launcher; phase 11: the row sort and the merge,
 counted over its two Trainers' 12 steps; phase 12: the row sort and the
 merge, counted over DBRX's ``calibrate``; phase 13: the row sort and the
-merge, counted over its three models' ``calibrate``); the run fails unless
-each kernel was launched on the nine together (the kv sort only sorts merges
+merge, counted over its three models' ``calibrate``; phase 14: the row sort
+and the merge in the ``dryrun_core`` check, and the row sort, the merge and
+the bucket count over the four examples); the run fails unless
+each kernel was launched on them together (the kv sort only sorts merges
 too long for one block: the log analytics path's T=2048 window merges and
 phase 9's merges of many summaries).
 
@@ -162,8 +179,22 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:  # the card's figures and each kernel's bytes and operations: one copy, in the port
+    from repro_torch.kernels.cost import (
+        F32_FLOPS,
+        HBM_BW,
+        PEAK_FLOPS,
+        bound_s,
+        bucket_count_cost,
+        kv_sort_cost,
+        merge_bytes,
+        merge_cost,
+        row_sort_cost,
+    )
+except ImportError as e:
+    print(f"chip_smoke: the port is not importable beside this script: {e}", file=sys.stderr)
+    sys.exit(2)
 SEED = 0
 T = 2032
 BETA = 254
@@ -190,10 +221,10 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time for the work: bytes over the memory rate or operations
-    over the float32 rate, whichever is larger."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    """Least time for the work, ms: bytes over the memory rate or operations
+    over the float32 rate, whichever is larger (``kernels.cost.bound_s``)."""
+    t, by = bound_s(nbytes, ops)
+    return t * 1e3, by
 
 
 # the runtime and driver calls that start device work: a trace keeps one
@@ -456,7 +487,7 @@ def check_kernels(dev, rng) -> dict:
     plain = cuda_ms(lambda: ref.summarize_rows_ref(x, ns, T))
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
     sort_ms = cuda_ms(lambda: kernels.sort_rows(x))
-    b, by = bound_ms(4.0 * rows * n + 4.0 * rows * (T + 1), rows * n * np.log2(n))
+    b, by = bound_ms(*row_sort_cost(rows, n, T))
     out["tile_sort"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
     log(f"row sort 256x2^20 f32: summarize {ms:.3f} ms, full sort {sort_ms:.3f} ms, "
         f"plain {plain:.3f} ms, torch.sort {lib:.3f} ms, bound {b:.3f} ms ({by})")
@@ -496,7 +527,7 @@ def check_kernels(dev, rng) -> dict:
     ms = cuda_ms(lambda: kernels.sort_kv(keys, vals))
     plain = cuda_ms(lambda: ref.sort_kv_ref(keys, vals))
     lib = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True))
-    b, by = bound_ms(16.0 * Q * L, Q * L * np.log2(L))
+    b, by = bound_ms(*kv_sort_cost(Q, L))
     out["sort_kv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
     log(f"kv sort 1000x65536: {ms:.3f} ms, plain {plain:.3f} ms, torch.sort {lib:.3f} ms, bound {b:.3f} ms")
     del keys, vals, ko, vo, rk, rv
@@ -556,12 +587,6 @@ def merge_bits_equal(got, want) -> bool:
     import torch
 
     return all(a.dtype == w.dtype and torch.equal(a.view(torch.int32), w.view(torch.int32)) for a, w in zip(got, want))
-
-
-def merge_bytes(Q: int, k: int, T1: int, beta: int) -> float:
-    """Device-memory bytes a merge call must move: the boundaries and sizes
-    read once, the β+1 boundaries and β sizes written once."""
-    return 4.0 * Q * (k * T1 + k * (T1 - 1) + 2 * beta + 1)
 
 
 def merge_bound_ms(Q: int, k: int, T1: int, beta: int) -> float:
@@ -657,7 +682,7 @@ def check_merge(dev, rng) -> dict:
     plain = cuda_ms(lambda: ref.merge_ref(bnd_q, sz_q, beta_q))
     Q, k, T1 = bnd_q.shape
     lreal = k * T1
-    b, by = bound_ms(merge_bytes(Q, k, T1, beta_q), Q * lreal * np.log2(lreal))
+    b, by = bound_ms(*merge_cost(Q, k, T1, beta_q))
     out = {"merge_cut": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)}
     # the call's device time split into its kv sort and the merge's own kernel
     items = calls_breakdown(lambda: kernels.merge_batched(bnd_q, sz_q, beta_q), 5)["device_us_by_item"]
@@ -669,7 +694,7 @@ def check_merge(dev, rng) -> dict:
         "kv_sort_ms": (sum(items.values()) - own) / 1e3,
         "torch_sort_stable_ms": cuda_ms(lambda: torch.sort(flat_keys, dim=-1, stable=True)),
         "scan_and_cut_ms": own / 1e3,
-        "kv_sort_bound_ms": bound_ms(16.0 * Q * lreal, 0)[0],
+        "kv_sort_bound_ms": bound_ms(kv_sort_cost(Q, lreal)[0], 0)[0],
         "scan_and_cut_bound_ms": bound_ms(12.0 * Q * lreal, 0)[0],
     }
     log(f"merge query split (device ms a call): {json.dumps(out['merge_split'])}")
@@ -1105,7 +1130,7 @@ def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> tuple[d
     ms = skew["spread_ms"]
     plain = cuda_ms(lambda: ref.cumulative_counts_ref(allv, bnd))
     lib = cuda_ms(lambda: torch.bincount(torch.bucketize(flat, bnd, right=True), minlength=T1 + 1))
-    b, by = bound_ms(4.0 * N, N * np.log2(T1))
+    b, by = bound_ms(*bucket_count_cost(N, T1))
     err = max_abs(got, want)
     log(f"bucket count {N} values x {T1} boundaries: {ms:.3f} ms a call (device {skew['spread_device_ms']:.3f}, "
         f"kernel {skew['spread_kernel_device_ms']:.3f}), plain {plain:.3f} ms, bucketize+bincount {lib:.3f} ms, "
@@ -1123,15 +1148,6 @@ def scale_bucket_count(dev, data: np.ndarray, boundaries: np.ndarray) -> tuple[d
 # ----------------------------------------------------------------- phase 5
 
 
-def synth_day(rng, day: int, base: int = 65_536) -> np.ndarray:
-    """A day of lognormal latencies with a weekly cycle and a late surge,
-    of ragged length base + U[0, base/16) — ``examples/log_analytics.py``'s
-    generator, drawn the same way from the same seed."""
-    n = base + int(rng.integers(0, max(1, base // 16)))
-    scale = 1.0 + 0.25 * (day % 7 in (5, 6)) + 0.6 * (day >= 24)
-    return (rng.lognormal(-1.8, 0.55, size=n) * scale).astype(np.float32)
-
-
 def window_bound(eps: float, day_eps) -> float:
     """Composed bound of a window answer over approximate day summaries:
     the store's ε plus, per day, twice the day's own bound (a range of a
@@ -1146,6 +1162,7 @@ def log_analytics(dev) -> tuple[dict, dict]:
 
     from repro_torch import kernels
     from repro_torch.core import HistogramStore
+    from repro_torch.examples.log_analytics import synth_day
 
     T_OUT, T_TILE, TILE = 2048, 512, 4096
     rng = np.random.default_rng(0)
@@ -1866,7 +1883,8 @@ def distributed_plane(dev, n_log2: int = 28, n_small_log2: int = 22) -> tuple[di
             "kv_sort_ms": (sum(items.values()) - own) / 1e3, "scan_and_cut_ms": own / 1e3,
             "torch_sort_stable_ms": cuda_ms(lambda: torch.sort(flat_keys, dim=-1, stable=True), reps=5),
             "bound_ms": merge_bound_ms(1, n_tiles, T_tile + 1, T_dev),
-            "kv_sort_bound_ms": bound_ms(16.0 * pairs, 0)[0], "scan_and_cut_bound_ms": bound_ms(12.0 * pairs, 0)[0],
+            "kv_sort_bound_ms": bound_ms(kv_sort_cost(1, pairs)[0], 0)[0],
+            "scan_and_cut_bound_ms": bound_ms(12.0 * pairs, 0)[0],
         }
         del head, tiles, bnd, sz
         res["traced"] = {
@@ -1894,7 +1912,6 @@ def distributed_plane(dev, n_log2: int = 28, n_small_log2: int = 22) -> tuple[di
     return launches, res
 
 
-BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 dense tensor-core rate (NVIDIA data sheet)
 # phase 10's tolerances, set from the dtypes before the first run:
 # - float32 decode against prefill: the reference test's own (tests/test_models.py);
 F32_STEP_TOL = 2e-3
@@ -2042,7 +2059,7 @@ def calibration_check(eng, batches: list, T_cal: int = 512, q: float = 0.999, fo
     timed = {
         "row_sort_ms": cuda_ms(lambda: build_exact(values[0], T_cal), reps=10),
         "torch_sort_ms": cuda_ms(lambda: torch.sort(values[0]), reps=10),
-        "row_sort_bound_ms": bound_ms(4.0 * (n + T_cal + 1), 0)[0],
+        "row_sort_bound_ms": bound_ms(row_sort_cost(1, n, T_cal)[0], 0)[0],
         "merge_ms": cuda_ms(lambda: merge_list(sums, 254), reps=20),
         "merge_bound_ms": merge_bound_ms(1, len(sums), T_cal + 1, 254),
         "shapes": {"row_sort": [1, n], "merge": [1, len(sums), T_cal + 1, 254]},
@@ -2206,9 +2223,9 @@ def train_bound_ms(cfg, B: int, S: int) -> dict:
     d, L = cfg.d_model, cfg.num_layers
     blk = L * (d * cfg.head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff)
     parts = {
-        "block_gemms_bf16": 2 * blk * B * S * 4 / BF16_OPS_PER_S * 1e3,
-        "attention_core_f32": 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim * L * 4 / F32_OPS_PER_S * 1e3,
-        "loss_f32": 2 * B * S * cfg.vocab_size * d * 4 / F32_OPS_PER_S * 1e3,
+        "block_gemms_bf16": 2 * blk * B * S * 4 / PEAK_FLOPS * 1e3,
+        "attention_core_f32": 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim * L * 4 / F32_FLOPS * 1e3,
+        "loss_f32": 2 * B * S * cfg.vocab_size * d * 4 / F32_FLOPS * 1e3,
     }
     return {"ms": sum(parts.values()), "by": "operations", "parts_ms": parts, "block_params": blk}
 
@@ -2412,7 +2429,7 @@ def training(dev) -> tuple[dict, dict]:
             "grad_quantile_ms": cuda_ms(lambda: grad_quantile(grads, opt.clip_q, opt.clip_hist_T), reps=5),
             "embed_row_sort_ms": cuda_ms(lambda: build_exact(emb, opt.clip_hist_T), reps=10),
             "embed_torch_sort_ms": cuda_ms(lambda: torch.sort(emb), reps=10),
-            "embed_row_sort_bound_ms": bound_ms(4.0 * (n + opt.clip_hist_T + 1), 0)[0],
+            "embed_row_sort_bound_ms": bound_ms(row_sort_cost(1, n, opt.clip_hist_T)[0], 0)[0],
             "merge_ms": cuda_ms(lambda: merge_list(list(sums.values()), opt.clip_hist_T), reps=20),
             "merge_bound_ms": merge_bound_ms(1, len(sums), opt.clip_hist_T + 1, opt.clip_hist_T),
             "shapes": {"embed_row_sort": [1, n], "merge": [1, len(sums), opt.clip_hist_T + 1, opt.clip_hist_T]},
@@ -2575,9 +2592,9 @@ def stack_bounds_ms(cfg, blocks, B: int, L: int, max_seq: int, kept: float, enc_
         f32 += cfg.encoder_layers * 2 * 2 * B * H * Se * Se * hd
     f32 += 2 * B * V * d
     unembed = 4 * V * d
-    ops_ms = (bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
-    prefill_bytes_ms = (blk + enc_blk + unembed) / HBM_BYTES_PER_S * 1e3
-    decode_bytes_ms = (blk - unread_experts + unembed + cache) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (bf16 / PEAK_FLOPS + f32 / F32_FLOPS) * 1e3
+    prefill_bytes_ms = (blk + enc_blk + unembed) / HBM_BW * 1e3
+    decode_bytes_ms = (blk - unread_experts + unembed + cache) / HBM_BW * 1e3
     return {
         "prefill": max(ops_ms, prefill_bytes_ms), "prefill_by": "operations" if ops_ms >= prefill_bytes_ms else "bytes",
         "decode_step": decode_bytes_ms, "decode_step_by": "bytes",
@@ -3064,6 +3081,281 @@ def last_families_serving(dev) -> tuple[dict, dict]:
     return launches, res
 
 
+# ----------------------------------------------------------------- phase 14
+
+# phase 14's tolerance, set before its first run: the dry-run's predicted
+# peak (the arguments plus the meta pass's largest live set) against
+# ``torch.cuda.max_memory_allocated`` over the arguments' allocation and one
+# real step, within 10 % of the prediction plus 256 MiB (cuBLAS workspaces,
+# the caching allocator's rounding); a miss is printed, not a failure.
+PEAK_TOL_REL, PEAK_TOL_ABS = 0.10, 256 << 20
+# (arch, kind, seq, batch): phase 11's training shape and phase 10's prefill
+DRYRUN_CELLS = (("smollm-135m", "train", TRAIN_SEQ, TRAIN_BATCH), ("qwen3-8b", "prefill", 512, 4))
+CORE_N, CORE_T = 1 << 22, 40 * 254  # dryrun_core's defaults: N = 2^30 over 256 devices, T = 40 β
+# phase 14d's tolerance, set before its first run: each example's card
+# printout against its CPU run, line by line.  The words and every count and
+# histogram number equal (the kernels are held bit-equal to their plain
+# versions); the example's CLOCK_FIELDS dropped; its MODEL_FIELDS (float32
+# model arithmetic whose reduction orders differ) within phase 11's clip
+# threshold tolerance, rel 1e-4, plus one unit of the last printed digit.
+EXAMPLE_MODEL_TOL = TRAIN_THR_TOL
+# train_lm's Trainer draws its parameters from a generator on its own device
+# (Philox on the card, the Mersenne twister on the CPU), so its MODEL_FIELDS
+# differ by the draw, not by rounding: they are dropped there (phase 11a holds
+# a train step card against CPU on one set of parameters)
+DRAWN_ON_DEVICE = ("train_lm",)
+
+
+def storage_bytes(tree) -> int:
+    """The bytes of the distinct storages under a tree of tensors."""
+    from repro_torch.tree import leaves
+
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in leaves(tree)}.values())
+
+
+def dryrun_cell_on_card(dev, arch: str, kind: str, S: int, B: int) -> dict:
+    """Phase 14a–b for one cell on a 1 × 1 stand-in mesh: the dry-run's
+    record, then the cell's arguments materialized on the card (their bytes
+    equal to the predicted ``argument_size_in_bytes``, group by group), one
+    real step's peak memory beside the predicted peak, and its time beside
+    ``roofline_step_s`` and this script's own bound."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_cache, init_model, prefill
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import make_opt_state, make_train_step
+
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, False, mesh=dryrun.StandInMesh(("data", "model"), (1, 1)))
+    dry_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + 14), device=dev)
+    rng = np.random.default_rng(SEED + 14)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    if kind == "train":
+        opt = dataclasses.replace(OptimizerConfig(), moment_dtype=cfg.optimizer_dtype, clip_mode="global_norm")
+        state = make_opt_state(params, opt)
+        batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1),
+                 "mask": torch.ones((B, S), dtype=torch.float32, device=dev)}
+        args = {"params": params, "opt": state, "batch": batch}
+        step = make_train_step(cfg, opt)
+
+        def run():
+            return step(params, state, batch)
+
+        bound = train_bound_ms(cfg, B, S)["ms"]
+    else:
+        cache = init_cache(cfg, B, S, device=dev)
+        batch = {"tokens": tokens}
+        args = {"params": params, "batch": batch, "cache": cache}
+
+        def run():
+            return prefill(cfg, params, batch, cache)
+
+        bound = stack_bounds_ms(cfg, params["blocks"], B, S, S, 0.0)["prefill"]
+    got = {name: storage_bytes(tree) for name, tree in args.items()}
+    want = rec["memory"]["arguments_by_group"]
+    assert got == want and sum(got.values()) == rec["memory"]["argument_size_in_bytes"], (arch, got, want)
+    out = run()
+    torch.cuda.synchronize()
+    del out
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ms = cuda_ms(run, reps=3)
+    predicted = rec["memory"]["peak_bytes_per_device"]
+    res = {
+        "arch": arch, "shape": shape.name, "dryrun_s": dry_s, "argument_bytes": sum(got.values()),
+        "arguments_equal": True, "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
+        "peak_within_tolerance": abs(peak - predicted) <= PEAK_TOL_REL * predicted + PEAK_TOL_ABS,
+        "roofline_step_ms": rec["roofline_step_s"] * 1e3, "terms_ms": {k: v * 1e3 for k, v in rec["terms"].items()},
+        "dominant": rec["dominant"], "measured_ms": ms, "chip_smoke_bound_ms": bound,
+        "flops_by_dtype": rec["flops_by_dtype"], "bytes": rec["hlo_bytes_per_device"],
+    }
+    del params, args, batch, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"dry run {arch} {shape.name} (1 x 1): arguments {res['argument_bytes']} B allocated = predicted; peak "
+        f"{peak / 1e9:.3f} GB against predicted {predicted / 1e9:.3f} GB "
+        f"({'within' if res['peak_within_tolerance'] else 'MISSED'} 10 % + 256 MiB); step {ms:.3f} ms against "
+        f"roofline_step_s {res['roofline_step_ms']:.3f} ms ({rec['dominant']}) and this script's bound "
+        f"{bound:.3f} ms; dry run {dry_s:.1f} s")
+    return res
+
+
+def dryrun_core_on_card(dev) -> tuple[dict, dict]:
+    """Phase 14c: ``dryrun_core``'s ``merge`` at one device's share
+    (N/256 = 2^22 values, T = 40·254, β = 254) through
+    ``distributed_histogram`` on an NCCL group of one rank: the predicted
+    kernel bound beside the measured ms; the result bit-equal to the
+    world-1 composition run on the CPU (the plain versions).  Returns the
+    launches of one call and the measurements."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import distributed_histogram
+    from repro_torch.launch import dryrun, dryrun_core
+    from repro_torch.launch.mesh import make_mesh
+
+    rec = dryrun_core.run("merge", False, CORE_N, CORE_T, BETA, mesh=dryrun.StandInMesh(("data",), (1,)))
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x = -torch.log(torch.empty(CORE_N, device=dev).exponential_(generator=g).clamp_(
+        min=torch.finfo(torch.float32).tiny))
+    root = tempfile.mkdtemp(prefix="nccl-", dir=os.path.join(ROOT, "build"))
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        distributed_histogram(x, CORE_T, BETA, mesh)  # NCCL makes its communicator at the first collective
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        h, ms_one, wall = event_call(lambda: distributed_histogram(x, CORE_T, BETA, mesh))
+        launches = kernels.reset_launches()
+        ms = cuda_ms(lambda: distributed_histogram(x, CORE_T, BETA, mesh), reps=10)
+        from repro_torch.core import build_exact
+
+        want = world_1(build_exact(x.cpu(), CORE_T), BETA)  # the plain versions
+        assert same_hist(h, want), "dryrun_core merge: not the world-1 composition on the CPU"
+        assert float(h.sizes.double().sum()) == CORE_N
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("tile_sort", "merge_cut"):
+        assert launches[name] > 0, f"dryrun_core merge never launched {name}: {launches}"
+    res = {"variant": "merge", "n": CORE_N, "T": CORE_T, "beta": BETA, "measured_ms": ms, "first_call_ms": ms_one,
+           "first_call_wall_ms": wall, "predicted_kernel_bound_ms": rec["kernel_bound_s"] * 1e3,
+           "predicted_roofline_ms": rec["roofline_step_s"] * 1e3,
+           "launch_bounds_ms": {f"{i['name']} {i['shape']}": i["bound_s"] * 1e3 for i in rec["launches"]}}
+    log(f"dryrun_core merge, 2^22 values at world 1: {ms:.4f} ms a call (first {ms_one:.4f} ms, wall {wall:.3f} ms) "
+        f"against the predicted kernel bound {res['predicted_kernel_bound_ms']:.4f} ms; launches {launches}")
+    return launches, res
+
+
+def same_printout(name: str, example, card_out: str, cpu_out: str) -> float:
+    """Hold an example's card printout to its CPU run, line by line, within
+    phase 14d's tolerance.  Returns the largest relative gap of its
+    ``MODEL_FIELDS`` (0 where ``DRAWN_ON_DEVICE`` drops them)."""
+    from repro_torch.examples import split_fields
+
+    lines, values = [], []
+    for out in (card_out, cpu_out):
+        text = split_fields(out, example.CLOCK_FIELDS)[0]
+        text, nums = split_fields(text, example.MODEL_FIELDS)
+        lines.append(text.splitlines())
+        values.append(nums)
+    diff = [(a, b) for a, b in zip(*lines) if a != b]
+    assert lines[0] == lines[1], (name, len(lines[0]), len(lines[1]), diff[:3])
+    worst = 0.0
+    for a, b in zip(*values) if name not in DRAWN_ON_DEVICE else ():
+        unit = 10.0 ** -len(b.partition(".")[2])  # one unit of the last printed digit
+        gap = abs(float(a) - float(b))
+        assert gap <= EXAMPLE_MODEL_TOL * abs(float(b)) + unit, (name, a, b)
+        worst = max(worst, gap / max(abs(float(b)), unit))
+    return worst
+
+
+def quickstart_shapes_vs_plain(dev) -> None:
+    """The quickstart's kernel calls at its own shapes and on its own draws
+    — 16 row sorts of 1 × 65,536 into 10,160 buckets, their merge into
+    254, the bucket count of 2^20 values against 255 boundaries — on the
+    card, bit-equal to the plain versions."""
+    import torch
+
+    from repro_torch.core import build_exact, merge_list
+    from repro_torch.kernels import bucket_sizes
+
+    rng = np.random.default_rng(0)
+    parts = [rng.gumbel(size=65_536).astype(np.float32) for _ in range(16)]
+    hs = {d: [build_exact(p, 40 * BETA, device=d) for p in parts] for d in (dev, "cpu")}
+    assert all(same_hist(a, b) for a, b in zip(*hs.values())), "quickstart's row sorts"
+    merged = {d: merge_list(h, BETA) for d, h in hs.items()}
+    assert same_hist(*merged.values()), "quickstart's merge"
+    values = np.concatenate(parts)
+    counts = {d: bucket_sizes(values, merged[d].boundaries, device=d).cpu() for d in (dev, "cpu")}
+    assert torch.equal(*counts.values()), "quickstart's bucket count"
+
+
+def examples_on_card(dev) -> tuple[dict, dict]:
+    """Phase 14d: each example's ``main`` on the card at its smoke size
+    (the train example 4 steps, its checkpoints in ``build/``), each ending
+    with its ``... OK``, then again with ``device="cpu"`` (the plain
+    versions): the card's printout held to the CPU's line by line, and the
+    quickstart's kernel calls held to their plain versions.
+    Returns the card runs' launches together and each one's wall seconds,
+    last lines and largest model-field gap."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.examples import log_analytics, quickstart, serve_calibrated, train_lm
+
+    ckpt = tempfile.mkdtemp(prefix="train-lm-", dir=os.path.join(ROOT, "build"))
+    runs = (("quickstart", quickstart, lambda d: quickstart.main(device=d)),
+            ("log_analytics", log_analytics, lambda d: log_analytics.main(True, device=d)),
+            ("serve_calibrated", serve_calibrated, lambda d: serve_calibrated.main(device=d)),
+            ("train_lm", train_lm, lambda d: train_lm.main(
+                ["--steps", "4", "--compress", "--ckpt-dir", os.path.join(ckpt, d or "card")]
+                + (["--device", d] if d else []))))
+
+    def printout(fn, device) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(device)
+        return buf.getvalue()
+
+    res, card_out = {}, {}
+    kernels.reset_launches()
+    try:
+        for name, _, fn in runs:
+            t0 = time.perf_counter()
+            card_out[name] = printout(fn, None)
+            lines = card_out[name].splitlines()
+            assert lines and lines[-1] == f"{name} OK", (name, lines[-3:])
+            res[name] = {"s": time.perf_counter() - t0, "lines": len(lines), "last": lines[-3:]}
+        launches = kernels.reset_launches()
+        quickstart_shapes_vs_plain(dev)
+        for name, example, fn in runs:
+            t0 = time.perf_counter()
+            res[name]["model_fields_rel_gap"] = same_printout(name, example, card_out[name], printout(fn, "cpu"))
+            res[name]["cpu_s"] = time.perf_counter() - t0
+            held = ("model fields dropped: drawn on each device" if name in DRAWN_ON_DEVICE
+                    else f"model fields within rel {res[name]['model_fields_rel_gap']:.2e}")
+            log(f"example {name} on the card: {res[name]['s']:.1f} s, {res[name]['lines']} lines equal to the "
+                f"CPU run's ({held}), ends {res[name]['last'][-2:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for name in PATH_KERNELS:
+        assert launches[name] > 0, f"the examples never launched {name}: {launches}"
+    return launches, res
+
+
+def dryrun_against_the_card(dev) -> tuple[tuple[dict, dict], dict]:
+    """Phase 14: the dry-run held to the card (module docstring).  Returns
+    the launches of the dryrun_core check and of the examples, and the
+    measurements."""
+    t_phase = time.perf_counter()
+    cells = [dryrun_cell_on_card(dev, *cell) for cell in DRYRUN_CELLS]
+    core_launches, core = dryrun_core_on_card(dev)
+    ex_launches, examples = examples_on_card(dev)
+    return (core_launches, ex_launches), {"cells": cells, "core": core, "examples": examples,
+                                          "path_s": time.perf_counter() - t_phase}
+
+
 MERGE_SHAPES_FILE = os.path.join(ROOT, "build", "merge_shapes.json")
 
 
@@ -3073,7 +3365,7 @@ def save_merge_shapes(dev, seen: dict) -> list[dict]:
     os.makedirs(os.path.dirname(MERGE_SHAPES_FILE), exist_ok=True)
     with open(MERGE_SHAPES_FILE, "w") as f:
         json.dump([[*key, calls] for key, calls in sorted(seen.items())], f)
-    log(f"merge shapes of phases 3-6 and 8-13: {len(seen)} distinct, {sum(seen.values())} calls")
+    log(f"merge shapes of phases 3-6 and 8-14: {len(seen)} distinct, {sum(seen.values())} calls")
     return merge_shape_times(dev, seen)
 
 
@@ -3112,13 +3404,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    try:
-        from repro_torch import kernels
-        from repro_torch.kernels import _lib
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable beside this script: {e}", file=sys.stderr)
-        return 2
+    from repro_torch import kernels
+    from repro_torch.kernels import _lib
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3157,6 +3445,7 @@ def main() -> int:
         training_ = phase("11 training", lambda: training(dev))
         moe_hybrid = phase("12 moe and hybrid serving", lambda: moe_hybrid_serving(dev))
         last = phase("13 rwkv, whisper and pixtral serving", lambda: last_families_serving(dev))
+        dry = phase("14 dry run against the card", lambda: dryrun_against_the_card(dev))
     merges = phase("7 merge shapes", lambda: save_merge_shapes(dev, shapes.seen))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")
@@ -3165,7 +3454,8 @@ def main() -> int:
     meas["bucket_count"] = big.pop("bucket_count")
     per_path = {"paper": launches, "log_analytics": logs[0], "registry": tenants[0], "service": serving[0],
                 "distributed": plane[0], "model_serving": models[0], "training": training_[0],
-                "moe_hybrid_serving": moe_hybrid[0], "last_families_serving": last[0]}
+                "moe_hybrid_serving": moe_hybrid[0], "last_families_serving": last[0], "dryrun": dry[0][0],
+                "examples": dry[0][1]}
     total = {name: sum(c[name] for c in per_path.values()) for name in _lib.KERNELS}
     if not all(total.values()):  # every kernel, the kv sort too, on the main paths
         log(f"chip_smoke: a kernel was never launched on the main paths: {per_path}")
@@ -3186,7 +3476,7 @@ def main() -> int:
                     "paper": times, "scale": big,
                     "log_analytics": logs[1], "registry": tenants[1], "service": serving[1], "distributed": plane[1],
                     "model_serving": models[1], "training": training_[1], "moe_hybrid_serving": moe_hybrid[1],
-                    "last_families_serving": last[1],
+                    "last_families_serving": last[1], "dryrun": dry[1],
                     "sorts": sorts,
                     "bucket_count_shapes": counts, "merge_shapes": merges}))
     log(card())

@@ -7,16 +7,18 @@ capacity-routed experts (``models.moe``), the selective scan
 shared primitives."""
 from repro_torch.models.model import (
     Model,
+    cache_specs,
     decode_step,
     forward_hidden,
     init_cache,
     init_model,
     loss_fn,
+    param_specs,
     prefill,
 )
 from repro_torch.models.common import chunked_softmax_xent
 
 __all__ = [
-    "Model", "chunked_softmax_xent", "decode_step", "forward_hidden", "init_cache",
-    "init_model", "loss_fn", "prefill",
+    "Model", "cache_specs", "chunked_softmax_xent", "decode_step", "forward_hidden", "init_cache",
+    "init_model", "loss_fn", "param_specs", "prefill",
 ]

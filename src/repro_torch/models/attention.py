@@ -41,6 +41,20 @@ def init_attention(cfg, rng: Init) -> dict:
     return params
 
 
+def attention_specs(cfg) -> dict:
+    """The logical sharding of :func:`init_attention`'s tree."""
+    specs = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = (None,)
+        specs["k_norm"] = (None,)
+    return specs
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")``."""
     d, h, k = w.shape
@@ -111,6 +125,12 @@ def init_kv_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=No
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs() -> dict:
+    """The logical sharding of :func:`init_kv_cache`'s tree."""
+    return {"k": ("batch_kv", "kv_seq", "kv_heads_cache", None),
+            "v": ("batch_kv", "kv_seq", "kv_heads_cache", None)}
 
 
 def prefill_attention(cfg, p, x, positions, cache, *, kind: str = "global"):

@@ -2,9 +2,10 @@
 cores and the chunked cross-entropy.
 
 Port of ``repro.models.common`` on PyTorch.  Parameters are plain nested
-dicts (and lists) of tensors, as in the reference; the logical sharding
-specs are not carried over (``repro_torch.sharding.Rules`` maps logical
-axes for the data-parallel train step).
+dicts (and lists) of tensors, as in the reference; their logical sharding
+specs come from separate functions beside each ``init_*``
+(``models.model.param_specs`` and ``cache_specs`` assemble them), which
+``repro_torch.sharding.Rules`` maps to mesh axes.
 
 The attention core computes in float32 whatever the compute dtype
 (logits, probabilities and the PV product), as the reference does, and

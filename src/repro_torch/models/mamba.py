@@ -29,7 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import Init, cast
 
-__all__ = ["apply_mamba", "decode_mamba_step", "init_mamba", "init_mamba_cache"]
+__all__ = [
+    "apply_mamba", "decode_mamba_step", "init_mamba", "init_mamba_cache", "mamba_cache_specs", "mamba_specs",
+]
 
 
 def init_mamba(cfg, rng: Init) -> dict:
@@ -53,6 +55,22 @@ def init_mamba(cfg, rng: Init) -> dict:
         ),
         "D": rng.ones((d_in,)),
         "w_out": rng.dense((d_in, d), fan_in=d_in),
+    }
+
+
+def mamba_specs() -> dict:
+    """The logical sharding of :func:`init_mamba`'s tree."""
+    return {
+        "wx": ("embed", "mamba_inner"),
+        "wz": ("embed", "mamba_inner"),
+        "conv_w": ("mamba_inner", None),
+        "conv_b": ("mamba_inner",),
+        "w_dbc": ("mamba_inner", None),
+        "w_dt": (None, "mamba_inner"),
+        "dt_bias": ("mamba_inner",),
+        "A_log": ("mamba_inner", None),
+        "D": ("mamba_inner",),
+        "w_out": ("mamba_inner", "embed"),
     }
 
 
@@ -165,6 +183,11 @@ def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict
         "h": torch.zeros((batch, d_in, cfg.mamba_d_state), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, d_in), dtype=dtype, device=device),
     }
+
+
+def mamba_cache_specs() -> dict:
+    """The logical sharding of :func:`init_mamba_cache`'s tree."""
+    return {"h": ("batch_kv", "mamba_inner", None), "conv": ("batch_kv", None, "mamba_inner")}
 
 
 def decode_mamba_step(cfg, p, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:

@@ -27,6 +27,13 @@ def init_mlp(cfg, rng: Init, *, gated: bool = True) -> dict:
     }
 
 
+def mlp_specs(*, gated: bool = True) -> dict:
+    """The logical sharding of :func:`init_mlp`'s tree."""
+    if gated:
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    return {"w_up": ("embed", "mlp"), "b_up": ("mlp",), "w_down": ("mlp", "embed"), "b_down": (None,)}
+
+
 def apply_mlp(cfg, p, x: torch.Tensor, *, gated: bool = True) -> torch.Tensor:
     dt = x.dtype
     if gated:

@@ -74,7 +74,8 @@ from repro_torch.models.common import (
 from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = [
-    "Model", "decode_step", "forward_hidden", "init_cache", "init_model", "loss_fn", "prefill",
+    "Model", "cache_specs", "decode_step", "forward_hidden", "init_cache", "init_model", "is_spec", "loss_fn",
+    "param_specs", "prefill",
 ]
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -94,6 +95,10 @@ def _init_norm(cfg, rng: Init) -> dict:
     if cfg.norm_type == "layernorm":
         return {"g": rng.ones((cfg.d_model,)), "b": rng.zeros((cfg.d_model,))}
     return {"g": rng.zeros((cfg.d_model,))}
+
+
+def _norm_specs(cfg) -> dict:
+    return {"g": (None,), "b": (None,)} if cfg.norm_type == "layernorm" else {"g": (None,)}
 
 
 def _apply_norm(cfg, p, x):
@@ -128,6 +133,22 @@ def init_layer(cfg: ModelConfig, kind: str, rng: Init) -> dict:
     else:
         params["ffn"] = mlp_mod.init_mlp(cfg, rng, gated=cfg.norm_type != "layernorm")
     return params
+
+
+def layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    """The logical sharding of :func:`init_layer`'s tree (one layer)."""
+    if kind == "rwkv":
+        return {"ln1": _norm_specs(cfg), "tm": rwkv_mod.rwkv_time_mix_specs(),
+                "ln2": _norm_specs(cfg), "cm": rwkv_mod.rwkv_channel_mix_specs()}
+    parts = _parse(kind)
+    specs = {"ln1": _norm_specs(cfg),
+             "mixer": mamba_mod.mamba_specs() if parts[0] == "mamba" else attn_mod.attention_specs(cfg)}
+    if "cross" in parts:
+        specs["ln_x"] = _norm_specs(cfg)
+        specs["cross"] = attn_mod.attention_specs(cfg)
+    specs["ln2"] = _norm_specs(cfg)
+    specs["ffn"] = moe_mod.moe_specs() if parts[-1] == "moe" else mlp_mod.mlp_specs(gated=cfg.norm_type != "layernorm")
+    return specs
 
 
 def _mixer(kind: str) -> str:
@@ -235,6 +256,34 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *, de
         params["encoder"] = {"blocks": _stacked_blocks(cfg, rng, _ENCODER, cfg.encoder_layers),
                              "final_norm": _init_norm(cfg, rng)}
     return params
+
+
+def is_spec(node) -> bool:
+    """A leaf of a logical spec tree: a tuple of axis names or ``None``."""
+    return isinstance(node, tuple) and all(e is None or isinstance(e, str) for e in node)
+
+
+def _stacked_specs(tree):
+    """A layer's spec tree with the leading ``"layers"`` entry of its stack."""
+    if is_spec(tree):
+        return ("layers",) + tree
+    return {k: _stacked_specs(v) for k, v in tree.items()}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical sharding of :func:`init_model`'s tree, leaf for leaf: a
+    tuple of logical axis names (or ``None``) per dimension, the
+    reference's ``init_model(..., abstract=True)`` specs (the stacked
+    blocks lead with ``"layers"``)."""
+    specs = {"embed": ("vocab", "embed"),
+             "blocks": [_stacked_specs(layer_specs(cfg, kind)) for kind in cfg.pattern],
+             "final_norm": _norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("vocab", "embed")
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {"blocks": [_stacked_specs(layer_specs(cfg, _ENCODER[0]))],
+                            "final_norm": _norm_specs(cfg)}
+    return specs
 
 
 class _Tree(torch.nn.Module):
@@ -432,6 +481,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                  _layer_cache(cfg, kind, batch, max_seq, dtype, dev))
         for kind in cfg.pattern
     )
+
+
+def _layer_cache_specs(cfg, kind: str) -> dict:
+    """The logical sharding of one layer's cache (``_layer_cache``)."""
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_cache_specs()
+    parts = _parse(kind)
+    specs = ({"ssm": mamba_mod.mamba_cache_specs()} if parts[0] == "mamba"
+             else {"kv": attn_mod.kv_cache_specs()})
+    if "cross" in parts:
+        specs["cross"] = {"k": ("batch_kv", None, "kv_heads_cache", None),
+                          "v": ("batch_kv", None, "kv_heads_cache", None)}
+    return specs
+
+
+def cache_specs(cfg: ModelConfig) -> tuple:
+    """The logical sharding of :func:`init_cache`'s tree, leaf for leaf
+    (the reference's ``init_cache(..., abstract=True)`` specs)."""
+    return tuple(_stacked_specs(_layer_cache_specs(cfg, kind)) for kind in cfg.pattern)
 
 
 def _logits(cfg, params, x):

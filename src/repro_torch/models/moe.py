@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Init, cast
 
-__all__ = ["apply_moe", "init_moe"]
+__all__ = ["apply_moe", "init_moe", "moe_specs"]
 
 
 def init_moe(cfg, rng: Init) -> dict:
@@ -43,6 +43,16 @@ def init_moe(cfg, rng: Init) -> dict:
         "w_gate": rng.dense((E, d, f)),
         "w_up": rng.dense((E, d, f)),
         "w_down": rng.dense((E, f, d), fan_in=f),
+    }
+
+
+def moe_specs() -> dict:
+    """The logical sharding of :func:`init_moe`'s tree."""
+    return {
+        "w_router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_mlp"),
+        "w_up": ("experts", "embed", "expert_mlp"),
+        "w_down": ("experts", "expert_mlp", "embed"),
     }
 
 

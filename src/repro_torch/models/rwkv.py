@@ -27,7 +27,7 @@ from repro_torch.models.common import Init, cast, layer_norm
 
 __all__ = [
     "apply_rwkv_channel_mix", "apply_rwkv_time_mix", "init_rwkv_cache", "init_rwkv_channel_mix",
-    "init_rwkv_time_mix",
+    "init_rwkv_time_mix", "rwkv_cache_specs", "rwkv_channel_mix_specs", "rwkv_time_mix_specs",
 ]
 
 
@@ -55,6 +55,18 @@ def init_rwkv_time_mix(cfg, rng: Init) -> dict:
     }
 
 
+def rwkv_time_mix_specs() -> dict:
+    """The logical sharding of :func:`init_rwkv_time_mix`'s tree."""
+    return {
+        "mix_r": (None,), "mix_k": (None,), "mix_v": (None,), "mix_g": (None,), "mix_w": (None,),
+        "w0": (None,), "wA": ("embed", None), "wB": (None, "embed"),
+        "u": ("rwkv_heads", None),
+        "wr": ("embed", "rwkv_proj"), "wk": ("embed", "rwkv_proj"), "wv": ("embed", "rwkv_proj"),
+        "wg": ("embed", "rwkv_proj"), "wo": ("rwkv_proj", "embed"),
+        "ln_g": (None,), "ln_b": (None,),
+    }
+
+
 def init_rwkv_channel_mix(cfg, rng: Init) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -64,6 +76,11 @@ def init_rwkv_channel_mix(cfg, rng: Init) -> dict:
         "wr": rng.dense((d, d)),
         "wv": rng.dense((f, d), fan_in=f),
     }
+
+
+def rwkv_channel_mix_specs() -> dict:
+    """The logical sharding of :func:`init_rwkv_channel_mix`'s tree."""
+    return {"mix_k": (None,), "mix_r": (None,), "wk": ("embed", "mlp"), "wr": ("embed", None), "wv": ("mlp", "embed")}
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
@@ -157,3 +174,9 @@ def init_rwkv_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict:
         "x_tm": torch.zeros((batch, 1, d), dtype=dtype, device=device),
         "x_cm": torch.zeros((batch, 1, d), dtype=dtype, device=device),
     }
+
+
+def rwkv_cache_specs() -> dict:
+    """The logical sharding of :func:`init_rwkv_cache`'s tree."""
+    return {"S": ("batch_kv", "rwkv_heads", None, None), "x_tm": ("batch_kv", None, None),
+            "x_cm": ("batch_kv", None, None)}

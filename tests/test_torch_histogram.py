@@ -82,6 +82,9 @@ def test_import_gate_in_a_fresh_interpreter():
         "repro_torch.launch.serve; "
         "import repro_torch.train, repro_torch.checkpoint, repro_torch.sharding, "
         "repro_torch.launch.train; "
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.launch.dryrun_core; "
+        "import repro_torch.examples.quickstart, repro_torch.examples.log_analytics, "
+        "repro_torch.examples.serve_calibrated, repro_torch.examples.train_lm; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "from repro_torch.kernels import _lib; "
