@@ -1,0 +1,80 @@
+"""Whole runs of every cell on the CPU at tiny sizes: the program (the
+port's ``device="cpu"`` path) is correct, the control is not, and the
+result line keeps its schema."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from hbench import harness, tiny
+
+BENCH = harness.with_deferred(harness.load_bench())
+CELLS = [w["name"] for w in BENCH["workloads"]]
+TOP = {"correct", "attempted", "failed", "metrics", "device", "checks"}
+
+
+def run(name, control=False, seconds=0.6, seed=2**31 + 12345):
+    cell = next(w for w in BENCH["workloads"] if w["name"] == name)
+    return harness.run_cell(name, seed, seconds, False, device="cpu", control=control,
+                            overrides=tiny.overrides(cell), bench=BENCH)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_program_is_correct_and_the_line_keeps_its_schema(name):
+    out = run(name)
+    assert out["correct"], out
+    assert TOP <= set(out) and list(out)[-1] == "checks"
+    assert out["attempted"] > 0 and out["failed"] == 0
+    want = {m["name"] for m in BENCH["end_to_end"] if harness.applies(m, name)}
+    assert set(out["metrics"]) == want
+    assert all(set(v) == {"value", "unit"} for v in out["metrics"].values())
+    assert set(out["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
+    for c in out["checks"].values():
+        assert c["value"] <= c["limit"]
+    json.dumps(out)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_one_precision_down_is_not_correct(name):
+    out = run(name, control=True)
+    assert out["failed"] == 0 and not out["correct"], out
+    assert any(c["value"] > c["limit"] for c in out["checks"].values())
+
+
+def test_run_without_a_card_prints_no_result():
+    p = subprocess.run([sys.executable, os.path.join(harness.HERE, "run.py"), "--workload", CELLS[0],
+                        "--seed", "1", "--seconds", "1", "--trace", "0"], capture_output=True, text=True,
+                       cwd=harness.ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, timeout=120)
+    assert p.returncode != 0 and p.stdout == ""
+
+
+def test_nothing_the_benchmark_runs_imports_jax_or_the_jax_package():
+    code = (
+        "import sys; sys.path[:0] = [{root!r}, {src!r}]\n"
+        "from hbench import harness, tiny\n"
+        "b = harness.with_deferred(harness.load_bench())\n"
+        "for w in b['workloads']:\n"
+        "    harness.run_cell(w['name'], 7, 0.3, False, device='cpu', overrides=tiny.overrides(w), bench=b)\n"
+        "sys.argv = ['run.py']\n"
+        "import importlib.util as u\n"
+        "s = u.spec_from_file_location('hb_run', {run!r}); m = u.module_from_spec(s); s.loader.exec_module(m)\n"
+        "print(repr(m.forbidden_modules()))\n"
+    ).format(root=harness.ROOT, src=os.path.join(harness.ROOT, "src"), run=os.path.join(harness.HERE, "run.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    code = (
+        "import sys; sys.path[:0] = [{root!r}]\n"
+        "import hbench.reference.exact, hbench.reference.control, hbench.cost, hbench.traffic, hbench.data\n"
+        "print(sorted({{m.split('.')[0] for m in sys.modules}} & {{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}}))\n"
+    ).format(root=harness.ROOT)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip() == "[]"

@@ -1,0 +1,120 @@
+"""The frozen yardstick: byte counts, the trace's union, the percentiles."""
+import time
+
+import numpy as np
+import pytest
+
+from hbench import cost, harness, trace
+from hbench.data import Pool
+from hbench.reference.exact import tree_eps_bound
+
+
+def test_row_sort_bytes_count_real_values_not_padding():
+    n = 161_290_322  # floor(5e9 / 31), padded by the program to 2^28
+    assert cost.row_sort_bytes(n, 2032) == 4 * n + 4 * 2033
+
+
+def test_canonical_nodes_match_a_brute_force_cover():
+    for lo in range(40):
+        for hi in range(lo, 40):
+            need, l = 0, lo
+            while l <= hi:  # greedy largest aligned block from the left
+                size = 1
+                while l % (2 * size) == 0 and l + 2 * size - 1 <= hi:
+                    size *= 2
+                need += 1
+                l += size
+            assert cost.canonical_nodes(lo, hi) == need
+
+
+def test_busy_time_is_the_union_not_the_sum():
+    iv = [(0, 10), (5, 15), (20, 30), (25, 26)]
+    assert sum(e - s for s, e in iv) == 31
+    assert trace.union_seconds(iv, 0, 40) == 25
+    assert trace.union_seconds(iv, 8, 22) == 9
+    assert trace.gaps(iv, 0, 40) == [(15, 20), (30, 40)]
+
+
+def _ev(name, cat, ts, dur, tid=1, **args):
+    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur, "tid": tid, "args": args}
+
+
+def test_parse_tags_device_work_with_the_span_that_launched_it():
+    t = {"traceEvents": [
+        _ev("hbench.stretch", "user_annotation", 0, 100),
+        _ev("hbench.ingest", "user_annotation", 0, 50),
+        _ev("hbench.query", "user_annotation", 60, 30),
+        _ev("cudaMemcpyAsync", "cuda_runtime", 1, 1, correlation=1),
+        _ev("cudaLaunchKernel", "cuda_runtime", 2, 1, correlation=2),
+        _ev("cudaLaunchKernel", "cuda_runtime", 61, 1, correlation=3),
+        _ev("cudaLaunchKernel", "cuda_runtime", 70, 1, correlation=4),  # lost: no device record
+        _ev("aten::copy_", "cpu_op", 30, 20),
+        _ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 5, 15, tid=7, correlation=1),
+        _ev("void hk::onesweep_kernel<false, false>", "kernel", 15, 20, tid=7, correlation=2),
+        _ev("void hk::resident_merge_kernel<8, 4>", "kernel", 65, 5, tid=7, correlation=3),
+    ]}
+    p = trace.parse(t)
+    assert p["stretch"] == (0.0, 100.0) and p["lost"] == 1
+    assert p["busy_us"] == 30 + 5  # copy and sort overlap 5 µs: counted once
+    spans = {name: span for name, _, _, _, span in p["device"]}
+    assert spans["void hk::onesweep_kernel<false, false>"] == "hbench.ingest"
+    assert spans["void hk::resident_merge_kernel<8, 4>"] == "hbench.query"
+    gaps = dict(p["breakdown"]["idle_gaps"])
+    assert gaps["hbench.ingest > aten::copy_"] == pytest.approx(30e-6)
+    assert [k for k, _ in p["breakdown"]["device_ops"]][0].startswith("void hk::onesweep")
+
+
+def test_roofline_readers_on_a_synthetic_trace():
+    tr = {"stretch": (0.0, 1e6), "busy_us": 0.0, "ingest_ns": [1000, 3000],
+          "query_batches": [([(0, 0, 30), (0, 3, 4)], 1)],
+          "device": [("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 0.0, 20.0, "hbench.ingest"),
+                     ("void hk::onesweep_kernel<false, false>", "kernel", 0.0, 10.0, "hbench.ingest"),
+                     ("void hk::resident_merge_kernel<8, 4>", "kernel", 0.0, 4.0, "hbench.ingest"),
+                     ("void hk::resident_merge_kernel<8, 4>", "kernel", 20.0, 30.0, "hbench.query")]}
+    run = {"config": {"num_buckets": 16}, "traffic": {"beta": 4}, "counters": {}, "trace": tr}
+    load = lambda n: harness.load_module(f"{harness.HERE}/metrics/{n}.py").read(run)
+    sort = load("row_sort.roofline.ingest")
+    assert sort == pytest.approx(100 * cost.least_seconds(4 * 4000 + 2 * 4 * 17) / 10e-6)
+    merge = load("merge_cut.roofline.query")  # one miss: the window with the fewest nodes, [3, 4]
+    assert merge == pytest.approx(100 * cost.least_seconds(cost.merge_bytes(2, 16, 4)) / 10e-6)
+    assert load("h2d_ms_per_gvalue.ingest") == pytest.approx(20e-3 / 4000e-9)  # 20 µs for 4,000 values
+    tr["busy_us"] = 2.5e5
+    assert load("device_idle.ingest") == load("device_idle.query") == pytest.approx(75.0)
+
+
+def test_eps_bound_is_the_worst_alignment():
+    # one leaf: exact, the bound is the top-level term alone
+    assert tree_eps_bound([100], 10) == pytest.approx(2 * 100 / 10 + 2)
+    # two leaves aligned on a pair make one node; unaligned, two leaves
+    aligned = (2 * 200 / 10 + 4) + 2 * 200 / 10 + 2
+    assert tree_eps_bound([100, 100], 10) == pytest.approx(max(aligned, 2 * 200 / 10 + 4))
+
+
+class _Stalling:
+    """An answering system that stalls once, for ``stall`` seconds."""
+
+    def __init__(self, stall):
+        self.stall = stall
+
+    def query_many(self, batch, beta):
+        if self.stall:
+            time.sleep(self.stall)
+            self.stall = 0.0
+        return [(np.zeros(beta + 1), np.ones(beta), 1.0)] * len(batch)
+
+    def counters(self):
+        return {"cache_misses": 0}
+
+
+def _p95(stall):
+    rec = harness.new_record()
+    pool = Pool(np.zeros(1, np.float32), np.ones((1, 1), np.int64))
+    traffic = {"fill": {"days": 31}, "rate_per_s": 400, "tenants": {"kind": "one"}, "windows": {"kind": "uniform"},
+               "days": 31, "beta": 4, "check_answers": 0}
+    harness._open_loop(_Stalling(stall), pool, traffic, 1.0, 5, trace.Tracer(False, 0, 0), rec)
+    assert rec["failed"] == 0 and rec["latency_s"].size == rec["attempted"] > 300
+    return harness.percentile_ms(rec["latency_s"], 95)
+
+
+def test_a_stall_moves_p95_because_every_request_counts():
+    assert _p95(0.3) - _p95(0.0) > 100.0
