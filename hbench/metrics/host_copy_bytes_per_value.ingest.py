@@ -1,0 +1,12 @@
+"""Bytes of host arrays ingest wrote (the program's
+``ingest.host_copy_bytes``: narrowing, padding and stacking copies) a
+real value ingested, over the whole window; ``None`` where the program
+keeps no such counter."""
+
+
+def read(run):
+    c = run["counters"]
+    copied = c.get("ingest.host_copy_bytes")
+    if copied is None or not c.get("values"):
+        return None
+    return copied / c["values"]

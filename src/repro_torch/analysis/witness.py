@@ -65,7 +65,6 @@ RANKS: dict[str, int] = {
     "wal._commit_lock": 40,     # WriteAheadLog._commit_lock (group commit)
     "wal._lock": 42,            # WriteAheadLog._lock (append/rotate)
     "arena._lock": 50,          # NodeArena._lock (RLock)
-    "tree.counters": 60,        # interval_tree._COUNTER_LOCK
     "faults.registry": 70,      # faults._LOCK (failpoint table)
 }
 

@@ -29,6 +29,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.device import as_tensor, home
 from repro_torch.kernels import merge_batched, ref, sort_kv, sort_rows, summarize_rows
 
@@ -106,7 +107,11 @@ def next_pow2(k: int) -> int:
 def pad_pow2(values, min_len: int = 1) -> tuple[np.ndarray, int]:
     """Pad a 1-D array to the next power-of-two length with a +inf sentinel
     (dtype max for integers).  Returns ``(padded, n)``, ``n`` the true
-    length; the pad sorts to the tail and no masked cut reaches it."""
+    length; the pad sorts to the tail and no masked cut reaches it.
+
+    Counts what it writes on the host where it makes it: the sentinels in
+    ``ingest.padded_values`` and the bytes of the fill and the padded copy
+    in ``ingest.host_copy_bytes`` (:mod:`~repro_torch.core.spans`)."""
     v = np.asarray(values).reshape(-1)
     n = int(v.shape[0])
     if n < 1:
@@ -118,7 +123,11 @@ def pad_pow2(values, min_len: int = 1) -> tuple[np.ndarray, int]:
         fill = np.array(np.inf, v.dtype)
     else:
         fill = np.array(np.iinfo(v.dtype).max, v.dtype)
-    return np.concatenate([v, np.full(n_pad - n, fill, v.dtype)]), n
+    tail = np.full(n_pad - n, fill, v.dtype)
+    padded = np.concatenate([v, tail])
+    spans.count("ingest.padded_values", tail.size)
+    spans.count("ingest.host_copy_bytes", tail.nbytes + padded.nbytes)
+    return padded, n
 
 
 def _sizes(ns, num_buckets: int, count_dtype, device) -> torch.Tensor:

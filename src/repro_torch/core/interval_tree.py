@@ -125,7 +125,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.analysis.witness import OrderedLock
+from repro_torch.core import spans
 from repro_torch.core.arena import NodeArena
 from repro_torch.core.histogram import Histogram, as_tensor, next_pow2
 from repro_torch.kernels import merge_batched
@@ -142,22 +142,6 @@ __all__ = [
 ]
 
 COLLAPSE_MODES = ("canonical", "amortized")
-
-# Ingest-path merge observability (module-wide: the cross-tenant batched
-# pull-up issues ONE dispatch per level for a whole drained batch, so the
-# counter cannot live on any single tree).  Benchmarks read and reset these
-# to machine-check the "one dispatch per level across tenants" claim and
-# the amortized-collapse merge-work claim.
-_COUNTER_LOCK = OrderedLock("tree.counters")
-PULLUP_STATS = {"dispatches": 0, "pair_merges": 0}
-
-
-def reset_pullup_stats() -> dict[str, int]:
-    with _COUNTER_LOCK:
-        out = dict(PULLUP_STATS)
-        PULLUP_STATS["dispatches"] = 0
-        PULLUP_STATS["pair_merges"] = 0
-    return out
 
 
 class TreeNode:
@@ -452,9 +436,10 @@ def _merge_pairs_multi(
             scatter.append(((q, 0), work[-1][3]))
             scatter.append(((q, 1), work[-1][4]))
         _scatter_rows(bs, ss, scatter, T_in)
-        with _COUNTER_LOCK:
-            PULLUP_STATS["dispatches"] += 1
-            PULLUP_STATS["pair_merges"] += Q
+        # module-wide, not per tree: a cross-tenant pull-up is one
+        # dispatch a level for a whole drained batch
+        spans.count("pullup.dispatches", 1)
+        spans.count("pullup.pair_merges", Q)
         # one batched merge kernel launch per output resolution; the
         # result reaches host NumPy before the caller releases its locks
         bo, so = merge_stacks(bs, ss, T_out, device=work[0][0].arena.torch_device)

@@ -124,6 +124,7 @@ from repro_torch.core.histogram import (
 from repro_torch.analysis.witness import OrderedRLock
 from repro_torch.device import resolve_device
 from repro_torch.core import failpoints as faults
+from repro_torch.core import spans
 from repro_torch.core.arena import NodeArena
 from repro_torch.core.interval_tree import COLLAPSE_MODES, IntervalTree
 from repro_torch.core.retention import RetentionPolicy, StoreStats, policy_from_spec
@@ -140,7 +141,11 @@ _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 
 def _narrowed(v: np.ndarray) -> np.ndarray:
     to = _NARROW.get(v.dtype)
-    return v if to is None else v.astype(to)
+    if to is None:
+        return v
+    out = v.astype(to)
+    spans.count("ingest.host_copy_bytes", out.nbytes)
+    return out
 
 
 def _validated(values) -> np.ndarray:
@@ -449,18 +454,19 @@ class HistogramStore(PoolStateView):
         out: dict[int, StoredSummary] = {}
         small: list[tuple[int, np.ndarray]] = []
         groups: dict[int, list[tuple[int, np.ndarray, int]]] = {}
-        for pid, values in parts.items():
-            v = _narrowed(np.asarray(values).reshape(-1))
-            if v.shape[0] < 1:
-                raise ValueError("cannot summarize an empty partition")
-            if v.shape[0] < self.num_buckets:
-                # tiny partition: summarized exactly at T = n (legacy rule)
-                small.append((int(pid), v))
-            else:
-                padded, n = pad_pow2(v)
-                groups.setdefault(padded.shape[0], []).append(
-                    (int(pid), padded, n)
-                )
+        with spans.span("store.pad"):
+            for pid, values in parts.items():
+                v = _narrowed(np.asarray(values).reshape(-1))
+                if v.shape[0] < 1:
+                    raise ValueError("cannot summarize an empty partition")
+                if v.shape[0] < self.num_buckets:
+                    # tiny partition: summarized exactly at T = n (legacy rule)
+                    small.append((int(pid), v))
+                else:
+                    padded, n = pad_pow2(v)
+                    groups.setdefault(padded.shape[0], []).append(
+                        (int(pid), padded, n)
+                    )
         for pid, v in small:
             h = build_exact(torch.from_numpy(v).to(self.device), v.shape[0])
             out[pid] = _make_summary(
@@ -471,20 +477,27 @@ class HistogramStore(PoolStateView):
                 rows = all_rows[at : at + _BATCH_ROWS]
                 k = len(rows)
                 k_pad = next_pow2(k)
-                # rows of different dtypes stack to their common dtype,
-                # which is narrowed like a single partition's
-                stack = _narrowed(
-                    np.stack([r[1] for r in rows] + [rows[-1][1]] * (k_pad - k))
-                )
-                ns = np.asarray(
-                    [r[2] for r in rows] + [rows[-1][2]] * (k_pad - k),
-                    np.int32,
-                )
+                with spans.span("store.stack"):
+                    # rows of different dtypes stack to their common dtype,
+                    # which is narrowed like a single partition's
+                    stacked = np.stack(
+                        [r[1] for r in rows] + [rows[-1][1]] * (k_pad - k)
+                    )
+                    # the duplicated rows are padding too
+                    spans.count("ingest.padded_values", (k_pad - k) * n_pad)
+                    spans.count("ingest.host_copy_bytes", stacked.nbytes)
+                    stack = _narrowed(stacked)
+                    ns = np.asarray(
+                        [r[2] for r in rows] + [rows[-1][2]] * (k_pad - k),
+                        np.int32,
+                    )
                 self.summarize_shapes.add((k_pad, n_pad, self.num_buckets))
-                h = build_exact_padded_batched(
-                    torch.from_numpy(stack).to(self.device), ns, self.num_buckets
-                )
-                bs, ss = h.boundaries.cpu().numpy(), h.sizes.cpu().numpy()
+                with spans.span("store.h2d"):
+                    x = torch.from_numpy(stack).to(self.device)
+                with spans.span("store.sort"):
+                    h = build_exact_padded_batched(x, ns, self.num_buckets)
+                with spans.span("store.d2h"):
+                    bs, ss = h.boundaries.cpu().numpy(), h.sizes.cpu().numpy()
                 for row, (pid, _, n) in enumerate(rows):
                     out[pid] = _make_summary(pid, n, bs[row], ss[row])
         return out
@@ -503,13 +516,15 @@ class HistogramStore(PoolStateView):
         if self.async_ingest:
             self.ingest_async(partition_id, values)
             return None
-        v = _validated(values)
-        lsns = self._wal_log_sync({int(partition_id): v})
-        summ = self._summarize(partition_id, v)
-        self._put(summ)
-        if self._wal is not None:
-            self._wal.mark_applied(lsns)
-        return summ
+        with spans.span("store.ingest"):
+            with spans.span("store.validate"):
+                v = _validated(values)
+            lsns = self._wal_log_sync({int(partition_id): v})
+            summ = self._summarize(partition_id, v)
+            self._put(summ)
+            if self._wal is not None:
+                self._wal.mark_applied(lsns)
+            return summ
 
     def ingest_summary(self, partition_id: int, hist: Histogram) -> None:
         """Store an externally-built summary (e.g. one built by another
@@ -534,20 +549,26 @@ class HistogramStore(PoolStateView):
         The worker drains the whole batch into one grouped summarization;
         call :meth:`flush` for visibility.
         """
-        validated = {
-            int(pid): _validated(values) for pid, values in partitions.items()
-        }
         if self.async_ingest:
+            validated = {
+                int(pid): _validated(values) for pid, values in partitions.items()
+            }
             for pid, v in validated.items():
                 self._enqueue(pid, v)
             return
-        # sync durable path: the whole batch is appended with ONE group-
-        # commit fsync (the WAL's fsync-batching policy), then applied
-        lsns = self._wal_log_sync(validated)
-        self._apply(self._summarize_batch(validated))
-        if self._wal is not None:
-            self._wal.mark_applied(lsns)
-        self._maybe_sweep()
+        with spans.span("store.ingest"):
+            with spans.span("store.validate"):
+                validated = {
+                    int(pid): _validated(values)
+                    for pid, values in partitions.items()
+                }
+            # sync durable path: the whole batch is appended with ONE group-
+            # commit fsync (the WAL's fsync-batching policy), then applied
+            lsns = self._wal_log_sync(validated)
+            self._apply(self._summarize_batch(validated))
+            if self._wal is not None:
+                self._wal.mark_applied(lsns)
+            self._maybe_sweep()
 
     def _put(self, summ: StoredSummary) -> None:
         self._apply({summ.partition_id: summ})
@@ -557,7 +578,7 @@ class HistogramStore(PoolStateView):
         """Make a batch of summaries visible atomically (one version bump)."""
         if not summs:
             return
-        with self._lock:
+        with spans.span("store.tree_update"), self._lock:
             self.summaries.update(summs)
             newest = max(summs)
             if self._watermark is None or newest > self._watermark:
@@ -619,7 +640,7 @@ class HistogramStore(PoolStateView):
         if self.retention is None:
             return []
         evicted: list[int] = []
-        with self._lock:
+        with spans.span("store.retention"), self._lock:
             while True:
                 victims = self.evict(
                     self.retention.victims(self._retention_stats())
@@ -677,8 +698,9 @@ class HistogramStore(PoolStateView):
         apply.  No-op (empty list) without a WAL."""
         if self._wal is None or not parts:
             return []
-        lsns = [self._wal.append(None, pid, v) for pid, v in parts.items()]
-        self._wal.commit(lsns[-1])
+        with spans.span("store.wal"):
+            lsns = [self._wal.append(None, pid, v) for pid, v in parts.items()]
+            self._wal.commit(lsns[-1])
         return lsns
 
     def wal_stats(self) -> dict | None:
@@ -737,7 +759,8 @@ class HistogramStore(PoolStateView):
         """IngestPool apply callback: one grouped summarization + one
         level-batched tree maintenance pass per drained batch (also the
         per-item retry body of the pool's poison isolation)."""
-        self._apply(self._summarize_batch(dict(batch)))
+        with spans.span("store.ingest"):
+            self._apply(self._summarize_batch(dict(batch)))
 
     @staticmethod
     def _wrap_async_error(item, exc: BaseException):
@@ -1095,8 +1118,13 @@ class HistogramStore(PoolStateView):
         return sum(self.summaries[i].n for i in ids)
 
     def cache_stats(self) -> dict[str, int]:
+        """The tree's cache hits, misses and version, then every span
+        total and counter of :mod:`~repro_torch.core.spans`: those are
+        process-wide, as ``kernels._lib.LAUNCHES`` is, and cover every
+        store in the process."""
         return {
             "hits": self._tree.cache_hits,
             "misses": self._tree.cache_misses,
             "version": self._tree.version,
+            **spans.snapshot(),
         }

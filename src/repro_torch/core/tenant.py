@@ -121,6 +121,7 @@ import numpy as np
 
 from repro_torch.analysis.witness import OrderedRLock
 from repro_torch.core import failpoints as faults
+from repro_torch.core import spans
 from repro_torch.core.arena import NodeArena
 from repro_torch.core.histogram import Histogram
 from repro_torch.core.resilience import (
@@ -537,32 +538,33 @@ class TenantRegistry(PoolStateView):
         lets the real exception propagate, so the per-item retry records
         the underlying error, not a wrapper.
         """
-        groups: dict[str, dict[int, np.ndarray]] = {}
-        for name, pid, values in batch:
-            groups.setdefault(name, {})[pid] = values
-        if len(groups) == 1:
-            ((name, parts),) = groups.items()
-            store = self.tenant(name)
-            faults.hit("tenant.apply", tenant=name, parts=len(parts))
-            store._apply(store._summarize_batch(parts))
-            self._breaker_ok(name)
-            return
-        if self.arena is not None:
-            self._apply_groups_batched(batch, groups)
-            return
-        suspects: list[tuple[str, int, np.ndarray]] = []
-        for name, parts in groups.items():
-            store = self.tenant(name)
-            try:
+        with spans.span("store.ingest"):
+            groups: dict[str, dict[int, np.ndarray]] = {}
+            for name, pid, values in batch:
+                groups.setdefault(name, {})[pid] = values
+            if len(groups) == 1:
+                ((name, parts),) = groups.items()
+                store = self.tenant(name)
                 faults.hit("tenant.apply", tenant=name, parts=len(parts))
                 store._apply(store._summarize_batch(parts))
                 self._breaker_ok(name)
-            except BaseException:
-                suspects += [
-                    item for item in batch if item[0] == name
-                ]
-        if suspects:
-            raise PartialBatchFailure(suspects)
+                return
+            if self.arena is not None:
+                self._apply_groups_batched(batch, groups)
+                return
+            suspects: list[tuple[str, int, np.ndarray]] = []
+            for name, parts in groups.items():
+                store = self.tenant(name)
+                try:
+                    faults.hit("tenant.apply", tenant=name, parts=len(parts))
+                    store._apply(store._summarize_batch(parts))
+                    self._breaker_ok(name)
+                except BaseException:
+                    suspects += [
+                        item for item in batch if item[0] == name
+                    ]
+            if suspects:
+                raise PartialBatchFailure(suspects)
 
     def _apply_groups_batched(
         self,
@@ -591,7 +593,7 @@ class TenantRegistry(PoolStateView):
             except BaseException:
                 suspects += [item for item in batch if item[0] == name]
         names = sorted(summarized)
-        with ExitStack() as stack:
+        with spans.span("store.tree_update"), ExitStack() as stack:
             for name in names:
                 stack.enter_context(summarized[name][0]._lock)
             applied: list[HistogramStore] = []
@@ -1238,7 +1240,11 @@ class TenantRegistry(PoolStateView):
 
     # ------------------------------------------------------------- utility
     def cache_stats(self) -> dict[str, int]:
-        """Aggregated per-tenant cache counters + registry dispatch count."""
+        """Aggregated per-tenant cache counters, the registry's dispatch
+        and host-copy counts, then every span total and counter of
+        :mod:`~repro_torch.core.spans`: those are process-wide, as
+        ``kernels._lib.LAUNCHES`` is, and cover every store and registry
+        in the process."""
         with self._lock:
             stores = list(self._stores.values())
         hits = sum(s._tree.cache_hits for s in stores)
@@ -1249,4 +1255,5 @@ class TenantRegistry(PoolStateView):
             "merge_dispatches": self.merge_dispatches,
             "merge_shapes": len(self.merge_shapes),
             "host_row_copies": self.host_row_copies,
+            **spans.snapshot(),
         }

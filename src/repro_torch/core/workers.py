@@ -969,6 +969,10 @@ class IngestPool:
         self._closing = threading.Event()
         # self-healing observability (surfaced through health()/stats())
         self.batches = 0
+        # items taken off the queues and the time they waited there, from
+        # submit to a worker taking them (stats()' queue_wait_ms_mean)
+        self.items = 0
+        self.queue_wait_ns = 0
         self.apply_retries = 0
         self.wal_append_retries = 0
         self.backpressure_rejects = 0
@@ -1026,7 +1030,9 @@ class IngestPool:
                     ) from e
             with self.cv:
                 self.pending += 1
-            self._queues[route % self.workers].put((item, lsn))
+            self._queues[route % self.workers].put(
+                (item, lsn, time.perf_counter_ns())
+            )
         if self.wal is not None:
             try:
                 self.wal.commit(lsn)  # durable before the ack
@@ -1095,7 +1101,7 @@ class IngestPool:
             entry = q.get()
             if entry is _SENTINEL:
                 return
-            batch = [entry]  # [(item, lsn)] — lsn None without a WAL
+            batch = [entry]  # [(item, lsn, submitted ns)] — lsn None without a WAL
             stop = False
             while True:  # drain whatever else is already queued — one flush
                 try:
@@ -1111,7 +1117,9 @@ class IngestPool:
                 return
 
     def _run_batch(self, batch: list) -> None:
-        items = [item for item, _lsn in batch]
+        taken = time.perf_counter_ns()
+        waited = sum(taken - at for _item, _lsn, at in batch)
+        items = [item for item, _lsn, _at in batch]
         try:
             try:
                 # chaos site: a worker "crash" mid-batch — the whole
@@ -1167,9 +1175,11 @@ class IngestPool:
                 # worker: advance the applied prefix so truncation-on-save
                 # can reclaim its segments (the WAL guards against
                 # crashes, not bad data; poison errors surfaced above)
-                self.wal.mark_applied(lsn for _item, lsn in batch)
+                self.wal.mark_applied(lsn for _item, lsn, _at in batch)
             with self.cv:
                 self.batches += 1
+                self.items += len(batch)
+                self.queue_wait_ns += waited
                 self.pending -= len(batch)
                 self.cv.notify_all()
 
@@ -1209,15 +1219,22 @@ class IngestPool:
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """Self-healing counters for health()/telemetry surfaces."""
+        """Self-healing counters for health()/telemetry surfaces.
+
+        ``queue_wait_ms_mean`` is the mean time, in ms, an item waited
+        between ``submit`` and a worker taking it off its queue, over every
+        item the workers have taken (0.0 before the first); an async
+        store's or registry's ``health()["pool"]`` carries it."""
         with self.cv:
             pending = self.pending
             errors_pending = len(self.errors)
             batches = self.batches
+            items, waited = self.items, self.queue_wait_ns
         return {
             "pending": pending,
             "errors_pending": errors_pending,
             "batches": batches,
+            "queue_wait_ms_mean": waited / items * 1e-6 if items else 0.0,
             "apply_retries": self.apply_retries,
             "wal_append_retries": self.wal_append_retries,
             "backpressure_rejects": self.backpressure_rejects,

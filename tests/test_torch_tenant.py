@@ -454,7 +454,8 @@ def test_health_has_the_reference_shape():
     hr, hp = ref.health(), port.health()
     assert hr.keys() == hp.keys() and hp["status"] == hr["status"] == "ok"
     assert hp["subscriptions"] is None and hp["replication"] is None
-    assert hp["pool"].keys() == hr["pool"].keys()
+    # the port's pool also reports the mean queue wait (IngestPool.stats)
+    assert hp["pool"].keys() == hr["pool"].keys() | {"queue_wait_ms_mean"}
 
 
 # --------------------------------------------- circuit breakers (faults)
