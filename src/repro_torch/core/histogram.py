@@ -41,6 +41,7 @@ __all__ = [
     "build_exact_padded",
     "build_exact_padded_batched",
     "pad_pow2",
+    "pad_sentinel",
     "next_pow2",
     "merge",
     "merge_list",
@@ -104,6 +105,15 @@ def next_pow2(k: int) -> int:
     return 1 << max(0, k - 1).bit_length()
 
 
+def pad_sentinel(dtype):
+    """The pad value of ``dtype``, which sorts past every real value:
+    ``+inf`` for floating types, the dtype's maximum for integers."""
+    dtype = np.dtype(dtype)
+    if np.issubdtype(dtype, np.floating):
+        return float("inf")
+    return int(np.iinfo(dtype).max)
+
+
 def pad_pow2(values, min_len: int = 1) -> tuple[np.ndarray, int]:
     """Pad a 1-D array to the next power-of-two length with a +inf sentinel
     (dtype max for integers).  Returns ``(padded, n)``, ``n`` the true
@@ -119,11 +129,7 @@ def pad_pow2(values, min_len: int = 1) -> tuple[np.ndarray, int]:
     n_pad = next_pow2(max(n, min_len))
     if n_pad == n:
         return v, n
-    if np.issubdtype(v.dtype, np.floating):
-        fill = np.array(np.inf, v.dtype)
-    else:
-        fill = np.array(np.iinfo(v.dtype).max, v.dtype)
-    tail = np.full(n_pad - n, fill, v.dtype)
+    tail = np.full(n_pad - n, pad_sentinel(v.dtype), v.dtype)
     padded = np.concatenate([v, tail])
     spans.count("ingest.padded_values", tail.size)
     spans.count("ingest.host_copy_bytes", tail.nbytes + padded.nbytes)

@@ -35,9 +35,9 @@ SPANS = {
     "store.ingest": "the whole ingest call or worker batch",
     "store.validate": "flattening and the empty-partition check",
     "store.wal": "the write-ahead log's append and fsync",
-    "store.pad": "narrowing to 32 bits and pad_pow2",
-    "store.stack": "np.stack of a dispatch's rows and their lengths",
-    "store.h2d": "the stacked rows' copy to the device",
+    "store.pad": "narrowing to 32 bits, grouping, and the sort's input buffer: its allocation and sentinel fill",
+    "store.stack": "a dispatch's lengths and its duplicated rows",
+    "store.h2d": "each row's copy from the caller's array into the sort's input buffer",
     "store.sort": "the row sort's launch side (build_exact_padded_batched)",
     "store.d2h": "boundaries and sizes back to the host, the sort's wait included",
     "store.tree_update": "leaf writes and pull-up merges",
@@ -47,7 +47,8 @@ SPANS = {
 # counter name -> what it counts
 COUNTERS = {
     "ingest.padded_values": "values the row sort receives beyond the real ones: pad sentinels and duplicated rows",
-    "ingest.host_copy_bytes": "bytes of host arrays ingest writes: the narrowing copy, pad_pow2's fill and concatenate, the stack",
+    "ingest.host_copy_bytes": "bytes of host staging arrays ingest writes: the narrowing copy, mixed-dtype casts, contiguous copies (and pad_pow2's arrays, where a caller pads)",
+    "ingest.upload_bytes": "bytes ingest copies from host arrays into the sort's input buffer",
     "pullup.dispatches": "batched merge dispatches of the tree's pull-ups and rebuilds",
     "pullup.pair_merges": "sibling pairs those dispatches merged",
 }

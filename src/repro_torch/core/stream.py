@@ -101,6 +101,7 @@ port's kernels on the store's device.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import tempfile
@@ -117,7 +118,7 @@ from repro_torch.core.histogram import (
     build_exact_padded_batched,
     merge_list,
     next_pow2,
-    pad_pow2,
+    pad_sentinel,
     quantile,
     theoretical_eps_max,
 )
@@ -146,6 +147,27 @@ def _narrowed(v: np.ndarray) -> np.ndarray:
     out = v.astype(to)
     spans.count("ingest.host_copy_bytes", out.nbytes)
     return out
+
+
+def _staged(v: np.ndarray, dtype) -> np.ndarray:
+    """``v`` in ``dtype`` and contiguous, as a copy into the sort's buffer
+    takes it; a host copy only where one of the two is missing, counted."""
+    if v.dtype == dtype and v.flags.c_contiguous:
+        return v
+    out = np.ascontiguousarray(v, dtype=dtype)
+    spans.count("ingest.host_copy_bytes", out.nbytes)
+    return out
+
+
+def _host_tensor(v: np.ndarray) -> torch.Tensor:
+    """A tensor over a contiguous host array that is only read from.  A
+    read-only array is taken through a writable alias of its bytes: torch
+    warns about read-only memory, and a copy out of it writes nothing
+    there.  The caller keeps ``v`` alive while the tensor is used."""
+    if not v.flags.writeable:
+        alias = (ctypes.c_char * v.nbytes).from_address(v.ctypes.data)
+        v = np.frombuffer(alias, dtype=v.dtype)
+    return torch.from_numpy(v)
 
 
 def _validated(values) -> np.ndarray:
@@ -437,12 +459,15 @@ class HistogramStore(PoolStateView):
     def _summarize_batch(self, parts: dict[int, np.ndarray]) -> dict[int, StoredSummary]:
         """Summarize many partitions with O(#shape buckets) dispatches.
 
-        Partitions are padded to power-of-two length buckets and each bucket
+        Partitions are grouped by power-of-two padded length and each group
         is summarized by ONE ``build_exact_padded_batched`` call — one row
         sort kernel launch on the store's device (its batch axis padded to
-        a power of two as well).  Results reach host NumPy before this
-        returns and are bit-identical to the per-partition ``build_exact``
-        path.
+        a power of two as well).  The padded input is built on the device:
+        a buffer filled with the sentinel, each row's real values copied
+        into its head straight from the caller's array, the duplicated
+        rows copied from the last real one.  Results reach host NumPy
+        before this returns and are bit-identical to the per-partition
+        ``build_exact`` path.
 
         64-bit partitions are narrowed to 32 bits *before* padding.  The
         reference pads first, so an int64 partition's ``iinfo(int64).max``
@@ -453,7 +478,7 @@ class HistogramStore(PoolStateView):
         """
         out: dict[int, StoredSummary] = {}
         small: list[tuple[int, np.ndarray]] = []
-        groups: dict[int, list[tuple[int, np.ndarray, int]]] = {}
+        groups: dict[int, list[tuple[int, np.ndarray]]] = {}
         with spans.span("store.pad"):
             for pid, values in parts.items():
                 v = _narrowed(np.asarray(values).reshape(-1))
@@ -463,12 +488,9 @@ class HistogramStore(PoolStateView):
                     # tiny partition: summarized exactly at T = n (legacy rule)
                     small.append((int(pid), v))
                 else:
-                    padded, n = pad_pow2(v)
-                    groups.setdefault(padded.shape[0], []).append(
-                        (int(pid), padded, n)
-                    )
+                    groups.setdefault(next_pow2(v.shape[0]), []).append((int(pid), v))
         for pid, v in small:
-            h = build_exact(torch.from_numpy(v).to(self.device), v.shape[0])
+            h = build_exact(_host_tensor(_staged(v, v.dtype)).to(self.device), v.shape[0])
             out[pid] = _make_summary(
                 pid, v.shape[0], h.boundaries.cpu().numpy(), h.sizes.cpu().numpy()
             )
@@ -477,29 +499,41 @@ class HistogramStore(PoolStateView):
                 rows = all_rows[at : at + _BATCH_ROWS]
                 k = len(rows)
                 k_pad = next_pow2(k)
-                with spans.span("store.stack"):
-                    # rows of different dtypes stack to their common dtype,
-                    # which is narrowed like a single partition's
-                    stacked = np.stack(
-                        [r[1] for r in rows] + [rows[-1][1]] * (k_pad - k)
+                with spans.span("store.pad"):
+                    # rows of different dtypes take their common dtype,
+                    # narrowed like a single partition's (np.stack's rule)
+                    common = np.result_type(*(v.dtype for _, v in rows))
+                    dtype = np.dtype(_NARROW.get(common, common))
+                    x = torch.full(
+                        (k_pad, n_pad), pad_sentinel(dtype),
+                        dtype=torch.from_numpy(np.empty(0, dtype)).dtype, device=self.device,
                     )
-                    # the duplicated rows are padding too
-                    spans.count("ingest.padded_values", (k_pad - k) * n_pad)
-                    spans.count("ingest.host_copy_bytes", stacked.nbytes)
-                    stack = _narrowed(stacked)
+                    # the sentinels and the duplicated rows are padding
+                    spans.count(
+                        "ingest.padded_values",
+                        sum(n_pad - v.shape[0] for _, v in rows) + (k_pad - k) * n_pad,
+                    )
+                with spans.span("store.h2d"):
+                    for r, (_, v) in enumerate(rows):
+                        if v.dtype != dtype:  # np.stack's cast, then narrowing
+                            v = _narrowed(_staged(v, common))
+                        v = _staged(v, dtype)
+                        x[r, : v.shape[0]].copy_(_host_tensor(v))
+                        spans.count("ingest.upload_bytes", v.nbytes)
+                with spans.span("store.stack"):
+                    if k < k_pad:
+                        x[k:] = x[k - 1]
                     ns = np.asarray(
-                        [r[2] for r in rows] + [rows[-1][2]] * (k_pad - k),
+                        [v.shape[0] for _, v in rows] + [rows[-1][1].shape[0]] * (k_pad - k),
                         np.int32,
                     )
                 self.summarize_shapes.add((k_pad, n_pad, self.num_buckets))
-                with spans.span("store.h2d"):
-                    x = torch.from_numpy(stack).to(self.device)
                 with spans.span("store.sort"):
                     h = build_exact_padded_batched(x, ns, self.num_buckets)
                 with spans.span("store.d2h"):
                     bs, ss = h.boundaries.cpu().numpy(), h.sizes.cpu().numpy()
-                for row, (pid, _, n) in enumerate(rows):
-                    out[pid] = _make_summary(pid, n, bs[row], ss[row])
+                for row, (pid, v) in enumerate(rows):
+                    out[pid] = _make_summary(pid, v.shape[0], bs[row], ss[row])
         return out
 
     def _summarize(self, partition_id: int, values) -> StoredSummary:

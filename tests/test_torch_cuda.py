@@ -140,6 +140,45 @@ def test_cuda_store_bit_equal_to_cpu_store(cuda, T_node):
         assert np.array_equal(hg.boundaries, hc.boundaries) and np.array_equal(hg.sizes, hc.sizes)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64, np.int64])
+def test_cuda_store_pads_on_the_card_as_the_cpu_store_does(cuda, dtype):
+    """The sort's padded input, built in a sentinel-filled buffer on the
+    card (rows uploaded as they lie, duplicated rows copied there), gives
+    the CPU store's summaries bit for bit: tiny, unpadded, padded and
+    grouped partitions, one at a time and in one batch, read-only and
+    strided ones among them."""
+    from repro_torch.core import HistogramStore, spans
+
+    rng = np.random.default_rng(27)
+    lens = [5, 1000, 1024, 700, 3001, 65_536, 40_000]
+    if np.issubdtype(dtype, np.floating):
+        parts = {p: (rng.gumbel(size=n) * 10).astype(dtype) for p, n in enumerate(lens)}
+    else:
+        parts = {p: rng.integers(-(2**31), 2**31 - 1, size=n, dtype=np.int64).astype(dtype)
+                 for p, n in enumerate(lens)}
+    parts[1].setflags(write=False)
+    parts[7] = np.concatenate([parts[4], parts[4]])[::2]  # strided
+    for batch in (True, False):
+        stores = [HistogramStore(num_buckets=64, device=d) for d in (cuda, "cpu")]
+        for st in stores:
+            s0 = spans.snapshot()["ingest.upload_bytes"]
+            if batch:
+                st.ingest_many(parts)
+            else:
+                for pid, v in parts.items():
+                    st.ingest(pid, v)
+            real = sum(v.size for v in parts.values() if v.size >= 64) * 4
+            assert spans.snapshot()["ingest.upload_bytes"] - s0 == real
+        if batch:
+            assert stores[0].summarize_shapes == stores[1].summarize_shapes
+            assert (4, 1024, 64) in stores[0].summarize_shapes  # three rows and a copy
+        for pid in parts:
+            a, b = (st.summaries[pid] for st in stores)
+            assert a.boundaries.dtype == b.boundaries.dtype, pid
+            assert np.array_equal(a.boundaries, b.boundaries) and np.array_equal(a.sizes, b.sizes), pid
+            assert a.crc == b.crc, pid
+
+
 def test_cuda_async_ingest_launches_from_the_worker(cuda):
     from repro_torch.core import HistogramStore
 

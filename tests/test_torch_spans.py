@@ -143,21 +143,22 @@ PARTS_F32 = {0: np.linspace(0, 1, 1000, dtype=np.float32)}
 
 
 @pytest.mark.parametrize(
-    "parts,padded,copied",
+    "parts,padded,copied,uploaded",
     [
-        # 24 sentinels; the fill (24 × 4 B), pad_pow2's concatenate and
-        # the one-row stack (1024 × 4 B each)
-        (PARTS_F32, 24, 24 * 4 + 2 * 1024 * 4),
-        # float64 is narrowed first: one more 1000 × 4 B copy
-        ({0: np.linspace(0, 1, 1000)}, 24, 1000 * 4 + 24 * 4 + 2 * 1024 * 4),
-        # a power of two is not padded; the stack still copies it
-        ({0: np.linspace(0, 1, 1024, dtype=np.float32)}, 0, 1024 * 4),
-        # three rows stack to four: the duplicated row is all padding
-        ({p: np.linspace(p, 1, 1000, dtype=np.float32) for p in range(3)}, 3 * 24 + 1024,
-         3 * (24 * 4 + 1024 * 4) + 4 * 1024 * 4),
+        # 24 sentinels, written on the device; no host array is made, and
+        # the 1000 real values are uploaded
+        (PARTS_F32, 24, 0, 1000 * 4),
+        # float64 is narrowed first: the one host copy, 1000 × 4 B
+        ({0: np.linspace(0, 1, 1000)}, 24, 1000 * 4, 1000 * 4),
+        # a power of two is not padded
+        ({0: np.linspace(0, 1, 1024, dtype=np.float32)}, 0, 0, 1024 * 4),
+        # three rows to four: the duplicated row, copied on the device, is
+        # all padding
+        ({p: np.linspace(p, 1, 1000, dtype=np.float32) for p in range(3)}, 3 * 24 + 1024, 0, 3 * 1000 * 4),
     ],
+    ids=["float32", "float64", "pow2", "three_rows"],
 )
-def test_ingest_counts_its_padding_and_host_copies(parts, padded, copied):
+def test_ingest_counts_its_padding_and_host_copies(parts, padded, copied, uploaded):
     store = HistogramStore(num_buckets=8, **CPU)
     s0 = spans.snapshot()
     if len(parts) == 1:
@@ -168,6 +169,7 @@ def test_ingest_counts_its_padding_and_host_copies(parts, padded, copied):
     d = delta(s0)
     assert d["ingest.padded_values"] == padded
     assert d["ingest.host_copy_bytes"] == copied
+    assert d["ingest.upload_bytes"] == uploaded
 
 
 def test_one_ingest_and_one_query_many_hit_every_span(tmp_path):
@@ -249,12 +251,13 @@ def _reader(name):
     return mod.read
 
 
-# one paper day: 161,290,322 values padded to 2^28, its host copies, and
-# 1.0 s of padding and stacking; 20 ms of tree upkeep over two partitions
+# one paper day: 161,290,322 values padded to 2^28, the host copies of
+# padding on the host, the real values uploaded, and 1.0 s of padding and
+# stacking; 20 ms of tree upkeep over two partitions
 DAY, PAD = 161_290_322, 2**28 - 161_290_322
 COUNTERS = {
     "values": 2 * DAY, "partitions": 2, "ingest.padded_values": 2 * PAD,
-    "ingest.host_copy_bytes": 2 * (4 * PAD + 2 * 4 * 2**28),
+    "ingest.host_copy_bytes": 2 * (4 * PAD + 2 * 4 * 2**28), "ingest.upload_bytes": 2 * 4 * DAY,
     "span_ns.store.pad": 1_200_000_000, "span_ns.store.stack": 800_000_000,
     "span_ns.store.tree_update": 8_000_000, "span_ns.store.retention": 12_000_000,
 }
@@ -267,6 +270,7 @@ COUNTERS = {
         ("host_copy_bytes_per_value.ingest", (4 * PAD + 2 * 4 * 2**28) / DAY),
         ("pad_share.ingest", 100.0 * PAD / 2**28),
         ("tree_ms_per_partition.ingest", 10.0),
+        ("upload_bytes_per_value.ingest", 4.0),
     ],
 )
 def test_a_reader_of_the_programs_spans_and_counters(name, want):

@@ -10,6 +10,7 @@ fault of the reference store that the port does not copy.  The port runs
 on the CPU here (``device="cpu"``: the kernels' plain versions).
 """
 import os
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,8 @@ import torch
 
 import repro.core as R
 from repro_torch import convert
-from repro_torch.core import HistogramStore, SlidingWindow, build_exact
+from repro_torch.core import HistogramStore, SlidingWindow, build_exact, spans
+from repro_torch.core.histogram import build_exact_padded_batched, next_pow2, pad_pow2
 
 if os.environ.get("REPRO_LOCK_WITNESS") == "1":
     # tests/conftest.py arms only the reference's witness
@@ -242,6 +244,102 @@ def test_int64_partition_matches_build_exact_not_the_reference_store():
     np.testing.assert_array_equal(want, [0, 25, 50, 75, 99])
     np.testing.assert_array_equal(ps.summaries[0].boundaries, want)
     np.testing.assert_array_equal(rs.summaries[0].boundaries, [-1, -1, 22, 47, 71])
+
+
+def host_stacked_summaries(parts: dict[int, np.ndarray], T: int) -> dict[int, tuple]:
+    """The summaries of the store's earlier host path: each partition
+    narrowed and padded by ``pad_pow2``, a group ``np.stack``ed to its
+    common dtype (rows duplicated to a power of two), narrowed again."""
+    narrow = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
+    groups = {}
+    for pid, v in parts.items():
+        v = v.astype(narrow.get(v.dtype, v.dtype))
+        padded, n = pad_pow2(v)
+        groups.setdefault(padded.shape[0], []).append((pid, padded, n))
+    out = {}
+    for rows in groups.values():
+        k_pad = next_pow2(len(rows))
+        stack = np.stack([r[1] for r in rows] + [rows[-1][1]] * (k_pad - len(rows)))
+        stack = stack.astype(narrow.get(stack.dtype, stack.dtype))
+        ns = [r[2] for r in rows] + [rows[-1][2]] * (k_pad - len(rows))
+        h = build_exact_padded_batched(torch.from_numpy(stack), ns, T)
+        for row, (pid, _, _) in enumerate(rows):
+            out[pid] = (h.boundaries[row].numpy(), h.sizes[row].numpy())
+    return out
+
+
+def test_a_group_mixing_int32_and_float32_rows_matches_the_host_stack():
+    """Rows of one padded length and two dtypes take float32, as
+    ``np.stack`` and its narrowing gave them, bit for bit: int32 values
+    near 2^31 round in the cast, and the int32 rows' sentinels become
+    +inf where they were 2^31."""
+    rng = np.random.default_rng(27)
+    parts = {
+        0: rng.integers(2**31 - 5000, 2**31 - 1, size=700, dtype=np.int64).astype(np.int32),
+        1: (rng.gumbel(size=1000) * 10).astype(np.float32),
+        2: rng.integers(-(2**31), 2**31 - 1, size=600, dtype=np.int64).astype(np.int32),
+        3: rng.integers(0, 3, size=900).astype(np.int32),
+        4: (rng.gumbel(size=1024) * 1e9).astype(np.float32),
+    }
+    ps = HistogramStore(num_buckets=T, device="cpu")
+    ps.ingest_many(parts)
+    assert ps.summarize_shapes == {(8, 1024, T)}
+    want = host_stacked_summaries(parts, T)
+    for pid, (b, sz) in want.items():
+        got = ps.summaries[pid]
+        assert got.boundaries.dtype == b.dtype == np.float32, pid
+        assert np.array_equal(got.boundaries, b) and np.array_equal(got.sizes, sz), pid
+
+
+def _read_only(v):
+    v = v.copy()
+    v.setflags(write=False)
+    return v
+
+
+@pytest.mark.parametrize(
+    "make,copied",
+    [(_read_only, False), (lambda v: v[::2], True), (lambda v: v[::-3], True)],
+    ids=["read_only", "strided", "reversed"],
+)
+def test_read_only_and_non_contiguous_partitions_ingest_without_a_warning(make, copied, monkeypatch):
+    """A read-only array is uploaded from where it lies, with no host copy
+    and never handed to torch as read-only memory (torch warns about that
+    once a process, so the test watches the handover itself); a
+    non-contiguous one takes one contiguous host copy."""
+    from_numpy = torch.from_numpy
+
+    def checked(a):
+        assert a.flags.writeable, "torch.from_numpy of a read-only array"
+        return from_numpy(a)
+
+    monkeypatch.setattr(torch, "from_numpy", checked)
+    v = make((np.random.default_rng(3).gumbel(size=3001) * 10).astype(np.float32))
+    ps = HistogramStore(num_buckets=T, device="cpu")
+    s0 = spans.snapshot()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ps.ingest(0, v)
+    s1 = spans.snapshot()
+    assert s1["ingest.host_copy_bytes"] - s0["ingest.host_copy_bytes"] == (v.nbytes if copied else 0)
+    assert s1["ingest.upload_bytes"] - s0["ingest.upload_bytes"] == v.nbytes
+    monkeypatch.undo()
+    want = build_exact(np.ascontiguousarray(v), T, device="cpu")
+    assert np.array_equal(ps.summaries[0].boundaries, want.boundaries.numpy())
+    assert np.array_equal(ps.summaries[0].sizes, want.sizes.numpy())
+
+
+def test_three_rows_padded_to_four_match_build_exact_row_by_row():
+    rng = np.random.default_rng(5)
+    parts = {p: (rng.gumbel(size=n) * 10).astype(np.float32) for p, n in enumerate([600, 1000, 777])}
+    ps = HistogramStore(num_buckets=T, device="cpu")
+    ps.ingest_many(parts)
+    assert ps.summarize_shapes == {(4, 1024, T)}
+    for pid, v in parts.items():
+        want = build_exact(v, T, device="cpu")
+        assert ps.summaries[pid].n == v.size
+        assert np.array_equal(ps.summaries[pid].boundaries, want.boundaries.numpy()), pid
+        assert np.array_equal(ps.summaries[pid].sizes, want.sizes.numpy()), pid
 
 
 @pytest.mark.parametrize("collapse", ["canonical", "amortized"])
