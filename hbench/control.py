@@ -3,9 +3,12 @@ precision down, ``reference/control.py``), or the program itself, on
 several seeds in one process, and print each run's compared numbers.
 
     python3 hbench/control.py --workload paper_month.daily --seconds 8 --seeds 11 12 13 [--program]
+    python3 hbench/control.py --workload qwen3_8b.offline --seconds 1 --seeds 11 12 --fault kv_cache_unwritten
 
 The benchmark's own runs never run the control; this is how its readings
-and the program's are taken for the limits (PERF.md, section 2).
+and the program's are taken for the limits (PERF.md, section 2).  With
+``--fault`` the program runs with that fault of ``faults.py`` planted
+underneath, at the cell's own size.
 """
 import argparse
 import json
@@ -25,22 +28,31 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=8.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--program", action="store_true", help="run the program instead of the control")
+    ap.add_argument("--fault", help="run the program with this fault of faults.py planted")
     args = ap.parse_args()
 
+    import pytest
     import torch
 
     torch.set_num_threads(1)
 
-    from hbench.harness import run_cell
+    from hbench import harness
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    program = args.program or bool(args.fault)
+    side = args.fault or ("program" if program else "control")
     for seed in args.seeds:
-        out = run_cell(args.workload, seed, args.seconds, False, control=not args.program)
-        print(json.dumps({"workload": args.workload, "seed": seed, "side": "program" if args.program else "control",
-                          "correct": out["correct"], "attempted": out["attempted"], "checks": out["checks"]}),
-              flush=True)
+        with pytest.MonkeyPatch.context() as mp:
+            if args.fault:
+                from hbench.faults import FAULTS
+
+                FAULTS[args.fault](mp)
+            out = harness.run_cell(args.workload, seed, args.seconds, False, control=not program)
+        print(json.dumps({"workload": args.workload, "seed": seed, "side": side, "correct": out["correct"],
+                          "attempted": out["attempted"], "memory_peak_bytes": out["device"]["memory_peak_bytes"],
+                          "checks": out["checks"]}), flush=True)
     return 0
 
 

@@ -14,6 +14,10 @@ set-up fills the partitions the traffic needs; then the window runs for
 it.  Once it has closed, the peak device memory is read, the system is
 closed and freed, and the reference (``reference/exact.py``) judges what
 the window produced.
+
+A configuration whose adapter is a served model (``KIND = "model"``,
+``systems/engine.py``) runs through ``serving.py`` instead: weights from
+the seed, a closed loop of batched turns, the model's reference.
 """
 from __future__ import annotations
 
@@ -306,7 +310,12 @@ def run_cell(
     cell, cfg, traffic = cell_parts(bench, workload, root)
     limits = cell_limits(workload, root)
     for part, over in (overrides or {}).items():
-        {"config": cfg, "traffic": traffic}[part].update(over)
+        {"config": cfg, "traffic": traffic, "limits": limits}[part].update(over)
+    if getattr(load_module(part_path(root, "systems", cfg["system"], ".py")), "KIND", None) == "model":
+        from hbench import serving
+
+        return serving.run_cell(workload, seed, seconds, trace, cell=cell, cfg=cfg, traffic=traffic, limits=limits,
+                                bench=bench, device=device, control=control, root=root, t0=t0)
     cuda = torch.device(device).type == "cuda"
     open_loop, beta = traffic["loop"] == "open", int(traffic["beta"])
     tracer = Tracer(trace and cuda, TRACE_START * seconds, min(TRACE_SECONDS, 0.3 * seconds))
@@ -377,7 +386,7 @@ def run_cell(
         e2e["answer_p95_ms"] = percentile_ms(rec["latency_s"], 95)
     if not open_loop and rec["elapsed"] > 0:
         e2e["ingest_values_per_s"] = rec["values"] / rec["elapsed"]
-    metrics = {}
+    run = None
     if trace:
         counters.update({k: rec[k] for k in ("partitions", "values", "requests")})
         run = {"config": cfg, "traffic": traffic, "counters": counters, "trace": None}
@@ -387,6 +396,16 @@ def run_cell(
                 "ingest_ns": rec["trace_ns"],
                 "query_batches": rec["trace_batches"],
             }
+    outcome = {"correct": correct, "attempted": rec["attempted"], "failed": rec["failed"], "errors": rec["errors"]}
+    return result_line(workload, cell, bench, root, tracer, run, e2e, outcome, peak, cuda, checks, limits)
+
+
+def result_line(workload, cell, bench, root, tracer, run, e2e, outcome, peak, cuda, checks, limits) -> dict:
+    """The result of a run: with a traced ``run`` (the readers' input) its
+    per-layer metrics, else its end-to-end metrics ``e2e``; ``outcome``
+    holds ``correct``, ``attempted``, ``failed`` and ``errors``."""
+    metrics = {}
+    if run is not None:
         for m in bench["per_layer"]:
             if applies(m, workload):
                 value = load_module(part_path(root, "metrics", m["name"], ".py")).read(run)
@@ -402,16 +421,17 @@ def run_cell(
         "count": int(cell["chips"]),
         "memory_peak_bytes": int(peak),
     }
-    out = {"correct": bool(correct), "attempted": int(rec["attempted"]), "failed": int(rec["failed"])}
+    out = {"correct": bool(outcome["correct"]), "attempted": int(outcome["attempted"]),
+           "failed": int(outcome["failed"])}
     out["metrics"] = metrics
     out["device"] = dev
-    if trace and tracer.parsed:
+    if run is not None and tracer.parsed:
         lo, hi = tracer.parsed["stretch"]
         dev["busy_s"] = tracer.parsed["busy_us"] * 1e-6
         dev["window_s"] = (hi - lo) * 1e-6
         out["breakdown"] = tracer.parsed["breakdown"]
         out["lost_launches"] = tracer.parsed["lost"]
-    if rec["errors"]:
-        out["errors"] = rec["errors"][:3]
+    if outcome["errors"]:
+        out["errors"] = outcome["errors"][:3]
     out["checks"] = {k: {"value": v, "limit": limits.get(k)} for k, v in checks.items()}
     return out

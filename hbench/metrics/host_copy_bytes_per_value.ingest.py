@@ -1,7 +1,8 @@
-"""Bytes of host arrays ingest wrote (the program's
-``ingest.host_copy_bytes``: narrowing, padding and stacking copies) a
-real value ingested, over the whole window; ``None`` where the program
-keeps no such counter."""
+"""Bytes of host staging arrays ingest wrote (the program's
+``ingest.host_copy_bytes``: the narrowing copy, mixed-dtype casts and
+contiguous copies of strided rows; the sort's padded input is built on
+the device and counts nothing) a real value ingested, over the whole
+window; ``None`` where the program keeps no such counter."""
 
 
 def read(run):

@@ -13,6 +13,17 @@ Every adapter module under ``systems/`` defines ``System(cfg, device)``:
 - ``counters()``: every counter the program keeps (:func:`program_counters`),
   with the answer cache's as ``cache_hits`` and ``cache_misses``;
 - ``close()``.
+
+An adapter of a served model says so with ``KIND = "model"``; the harness
+runs its cells through ``serving.py``, and it defines ``System(cfg,
+traffic, params, device)`` (``params``: the weights the harness made from
+the seed, in the program's tree layout) with:
+
+- ``generate(prompts)``: one turn, a list of token-id arrays; returns each
+  prompt followed by the tokens served after it;
+- ``warm(prompts)``: a throwaway turn that runs every kernel and shape of
+  one;
+- ``counters()`` and ``close()``, as above.
 """
 from __future__ import annotations
 

@@ -63,6 +63,10 @@ def test_deferred_cells_fit_the_contract_once_copied_back():
 def test_traffic_files_parse(name):
     with open(os.path.join(harness.HERE, "traffic", name)) as f:
         t = json.load(f)
+    if "batch" in t:  # a served model's turns (serving.py)
+        assert t["loop"] == "closed" and {"batch", "prompt_tokens", "new_tokens"} <= set(t)
+        assert min(int(t[k]) for k in ("batch", "prompt_tokens", "new_tokens")) >= 1
+        return
     assert {"fill", "loop", "days", "beta"} <= set(t)
     from hbench import traffic as gen
     for key, table in (("windows", gen.WINDOWS), ("publish", gen.WINDOWS), ("tenants", gen.TENANTS)):

@@ -72,6 +72,9 @@ def test_the_reference_imports_nothing_of_the_program():
     code = (
         "import sys; sys.path[:0] = [{root!r}]\n"
         "import hbench.reference.exact, hbench.reference.control, hbench.cost, hbench.traffic, hbench.data\n"
+        "import json, hbench.model_cost, hbench.reference.model as m\n"
+        "c = json.load(open({root!r} + '/hbench/configs/qwen3_8b.json'))\n"
+        "m.Decoder(c, {root!r} + '/hbench/reference/layers')\n"
         "print(sorted({{m.split('.')[0] for m in sys.modules}} & {{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}}))\n"
     ).format(root=harness.ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,4 +1,7 @@
-"""The frozen yardstick: byte counts, the trace's union, the percentiles."""
+"""The frozen yardstick: byte and operation counts, the trace's union,
+the percentiles, the served model's readers."""
+import json
+import os
 import time
 
 import numpy as np
@@ -118,3 +121,78 @@ def _p95(stall):
 
 def test_a_stall_moves_p95_because_every_request_counts():
     assert _p95(0.3) - _p95(0.0) > 100.0
+
+
+QWEN = json.load(open(os.path.join(harness.HERE, "configs", "qwen3_8b.json")))
+
+
+def test_model_operations_and_bytes_match_a_hand_count():
+    from hbench import model_cost as mc
+
+    attn = 4096 * 4096 + 2 * 4096 * 1024 + 4096 * 4096  # q, k and v (8 heads of 128), out
+    mlp = 3 * 4096 * 12288
+    P, U = 36 * (attn + mlp), 151936 * 4096
+    assert mc.token_params(QWEN) == P == 6_945_767_424 and mc.unembed_params(QWEN) == U
+    assert P + 2 * U == 8_190_427_136  # Qwen3-8B's 8.19 B, less its norms
+    # two prompts of 3 tokens: the layers at 3 positions, causal attention over 1 + 2 + 3, logits at the last
+    assert mc.prefill_flops(QWEN, 2, 3) == 2 * (2 * 3 * P + 4 * 4096 * 36 * 6 + 2 * U)
+    # a step at position 9 sees 10 positions; it reads every weight and 10 positions of 36 layers' K and V
+    assert mc.decode_flops(QWEN, 4, 9) == 4 * (2 * (P + U) + 4 * 4096 * 36 * 10)
+    assert mc.decode_bytes(QWEN, 4, 9, "bfloat16") == 2 * (P + U) + 36 * 2 * 4 * 10 * 8 * 128 * 2
+    assert mc.turn_flops(QWEN, 4, 5, 3) == mc.prefill_flops(QWEN, 4, 5) + mc.decode_flops(QWEN, 4, 5) + \
+        mc.decode_flops(QWEN, 4, 6)
+
+
+def test_hybrid_layer_parts_match_a_hand_count():
+    from hbench import model_cost as mc
+
+    jamba = {"hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32, "num_key_value_heads": 8,
+             "num_experts": 16, "num_experts_per_tok": 2, "mamba_d_state": 16, "mamba_d_conv": 4,
+             "mamba_expand": 2, "mamba_dt_rank": 256, "vocab_size": 65536, "num_hidden_layers": 8,
+             "pattern": ["mamba+mlp", "mamba+moe", "mamba+mlp", "mamba+moe", "attn+mlp", "mamba+moe", "mamba+mlp",
+                         "mamba+moe"]}
+    mamba = 2 * 4096 * 8192 + 8192 * 4 + 8192 * (256 + 32) + 256 * 8192 + 8192 * 4096
+    assert mc.part_params(jamba, "mamba") == mamba == 105_152_512
+    assert mc.part_params(jamba, "moe") == 4096 * 16 + 2 * 3 * 4096 * 14336
+    assert mc.part_params(jamba, "moe", routed=16) == 4096 * 16 + 16 * 3 * 4096 * 14336
+    # a step of 4 tokens reaches at most 8 of the 16 experts; the state is read and written
+    moe8 = 4096 * 16 + 8 * 3 * 4096 * 14336
+    layers = 7 * mamba + 4 * mc.part_params(jamba, "mlp") + 4 * moe8 + mc.part_params(jamba, "attn")
+    state = 7 * 2 * 4 * (8192 * 16 * 4 + 3 * 8192 * 2) + 2 * 4 * 10 * 8 * 128 * 2
+    assert mc.decode_bytes(jamba, 4, 9, "bfloat16") == (layers + 65536 * 4096) * 2 + state
+
+
+def _turn_run(**counters):
+    cfg = {**QWEN, "hidden_size": 128, "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 32,
+           "intermediate_size": 256, "vocab_size": 512, "num_hidden_layers": 2}
+    traffic = {"batch": 4, "prompt_tokens": 24, "new_tokens": 3}
+    d2h = "Memcpy DtoH (Device -> Pageable)"
+    tr = {"stretch": (0.0, 1000.0), "busy_us": 400.0, "spans": [(5.0, 900.0, "hbench.turn")],
+          "device": [("kernel_a", "kernel", 10.0, 50.0, "hbench.turn"), (d2h, "gpu_memcpy", 90.0, 105.0, "hbench.turn"),
+                     ("kernel_b", "kernel", 110.0, 150.0, "hbench.turn"), ("kernel_c", "kernel", 160.0, 190.0, "hbench.turn"),
+                     (d2h, "gpu_memcpy", 195.0, 205.0, "hbench.turn"), ("kernel_b", "kernel", 210.0, 260.0, "hbench.turn"),
+                     (d2h, "gpu_memcpy", 295.0, 305.0, "hbench.turn"), ("kernel_b", "kernel", 310.0, 350.0, "hbench.turn")]}
+    return {"config": cfg, "traffic": traffic, "counters": counters, "trace": tr, "platform": "gpu"}
+
+
+def test_serve_readers_on_a_synthetic_turn():
+    from hbench import model_cost as mc
+
+    run = _turn_run(turns=3, window_s=0.9, plain_turns=2, plain_s=0.5)
+    load = lambda n: harness.load_module(f"{harness.HERE}/metrics/{n}.py").read(run)
+    c = run["config"]
+    # the prefill runs from the turn's start (5 µs) to the first token's copy (105 µs)
+    assert load("prefill.mfu.serve") == pytest.approx(100 * mc.prefill_flops(c, 4, 24) / (100e-6 * mc.PEAK_BF16_FLOPS))
+    # two steps (positions 24 and 25) between the first copy (105) and the last (305)
+    need = mc.decode_bytes(c, 4, 24, "bfloat16") + mc.decode_bytes(c, 4, 25, "bfloat16")
+    assert load("decode_step.roofline.serve") == pytest.approx(100 * cost.least_seconds(need) / 200e-6)
+    assert load("launches_per_decode_step.serve") == 1.5  # kernels b, c and b; the last b is after the last copy
+    assert load("turn.mfu.serve") == pytest.approx(100 * 2 * mc.turn_flops(c, 4, 24, 3) / (0.5 * mc.PEAK_BF16_FLOPS))
+    assert load("device_idle.serve") == pytest.approx(60.0)
+    run["counters"].update(plain_turns=0, plain_s=0.0)  # every turn traced: no share from the profiled one
+    assert load("turn.mfu.serve") is None
+    run["counters"].update(plain_turns=2, plain_s=0.5)
+    run["trace"]["device"] = run["trace"]["device"][:-2]  # a copy lost: no whole turn, nothing read
+    assert load("prefill.mfu.serve") is None and load("launches_per_decode_step.serve") is None
+    run["platform"] = "cpu"
+    assert load("turn.mfu.serve") is None  # no device share from a CPU run

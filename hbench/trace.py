@@ -56,7 +56,8 @@ def gaps(intervals, lo: float, hi: float) -> list[tuple[float, float]]:
 
 def parse(trace: dict) -> dict:
     """The parts of a Chrome trace the readers use (times in µs):
-    ``stretch`` ``(start, end)``, ``device`` ``[(name, cat, start, end,
+    ``stretch`` ``(start, end)``, ``spans`` ``[(start, end, name)]`` of the
+    harness's spans, ``device`` ``[(name, cat, start, end,
     span)]``, ``busy_us``, ``lost`` launches, and the ``breakdown``."""
     evs = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
     stretch = next((e for e in evs if e.get("name") == STRETCH and e.get("cat") == "user_annotation"), None)
@@ -131,6 +132,7 @@ def parse(trace: dict) -> dict:
     top = lambda d: [[k, v * 1e-6] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
     return {
         "stretch": (lo, hi),
+        "spans": spans,
         "device": device,
         "busy_us": busy,
         "lost": lost,
