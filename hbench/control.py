@@ -7,8 +7,8 @@ several seeds in one process, and print each run's compared numbers.
 
 The benchmark's own runs never run the control; this is how its readings
 and the program's are taken for the limits (PERF.md, section 2).  With
-``--fault`` the program runs with that fault of ``faults.py`` planted
-underneath, at the cell's own size.
+``--fault`` the program runs with that fault of ``faults.py`` or of a
+``planted/<config>.py`` planted underneath, at the cell's own size.
 """
 import argparse
 import json
@@ -28,7 +28,7 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=8.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--program", action="store_true", help="run the program instead of the control")
-    ap.add_argument("--fault", help="run the program with this fault of faults.py planted")
+    ap.add_argument("--fault", help="run the program with this fault (faults.py, planted/) planted")
     args = ap.parse_args()
 
     import pytest
@@ -46,9 +46,9 @@ def main() -> int:
     for seed in args.seeds:
         with pytest.MonkeyPatch.context() as mp:
             if args.fault:
-                from hbench.faults import FAULTS
+                from hbench.faults import planted
 
-                FAULTS[args.fault](mp)
+                planted()[0][args.fault](mp)
             out = harness.run_cell(args.workload, seed, args.seconds, False, control=not program)
         print(json.dumps({"workload": args.workload, "seed": seed, "side": side, "correct": out["correct"],
                           "attempted": out["attempted"], "memory_peak_bytes": out["device"]["memory_peak_bytes"],

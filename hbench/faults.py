@@ -9,11 +9,18 @@ served model's: a decode step that writes its key and value one slot off,
 one that never writes them (its state left unchanged), qk-norm left out of
 decode, a served token altered, half of a turn's rows left out.  The
 exchange between chips is not among them: every cell runs on one card.
+
+A configuration may bring faults of its own, as a file: ``planted/<config>.py``
+with ``FAULTS`` (name -> plant, as here) and ``CASES`` (``(workload,
+fault)`` pairs that ``test_hbench_faults.py`` runs).  :func:`planted` finds
+them beside these.
 """
 import dataclasses
+import os
 
 import torch
 
+from hbench import harness
 from repro_torch.core import interval_tree, stream
 from repro_torch.core.stream import HistogramStore
 from repro_torch.models import attention
@@ -98,3 +105,20 @@ FAULTS = {
         real(self, logits, g) + 1) % logits.shape[-1])(Engine._sample)),
     "half_the_rows_left_out": lambda mp: mp.setattr(Engine, "generate", half_the_rows_answered(Engine.generate)),
 }
+
+
+def planted(root: str = harness.ROOT) -> tuple[dict, list]:
+    """Every fault in the checkout ``root``, these and each
+    ``planted/<config>.py``'s, and the cases the planted files name."""
+    faults, cases = dict(FAULTS), []
+    folder = os.path.join(root, "hbench", "planted")
+    for name in sorted(os.listdir(folder)) if os.path.isdir(folder) else []:
+        if not name.endswith(".py"):
+            continue
+        mod = harness.load_module(os.path.join(folder, name))
+        clash = sorted(faults.keys() & mod.FAULTS.keys())
+        if clash:
+            raise ValueError(f"planted/{name} names faults that are already planted: {clash}")
+        faults.update(mod.FAULTS)
+        cases += [tuple(c) for c in mod.CASES]
+    return faults, cases

@@ -98,6 +98,11 @@ def applies(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
 
 
+def is_model(cfg: dict, root: str = ROOT) -> bool:
+    """The configuration's adapter serves a model (``KIND = "model"``)."""
+    return getattr(load_module(part_path(root, "systems", cfg["system"], ".py")), "KIND", None) == "model"
+
+
 def system_class(cfg: dict, control: bool, root: str = ROOT):
     path = (
         os.path.join(HERE, "reference", "control.py")
@@ -311,7 +316,7 @@ def run_cell(
     limits = cell_limits(workload, root)
     for part, over in (overrides or {}).items():
         {"config": cfg, "traffic": traffic, "limits": limits}[part].update(over)
-    if getattr(load_module(part_path(root, "systems", cfg["system"], ".py")), "KIND", None) == "model":
+    if is_model(cfg, root):
         from hbench import serving
 
         return serving.run_cell(workload, seed, seconds, trace, cell=cell, cfg=cfg, traffic=traffic, limits=limits,

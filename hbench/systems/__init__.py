@@ -11,7 +11,9 @@ Every adapter module under ``systems/`` defines ``System(cfg, device)``:
   beta)``: answers ``(boundaries, sizes, eps)``;
 - ``retained(t)``: the summaries the system holds, ``{pid: (b, s)}``;
 - ``counters()``: every counter the program keeps (:func:`program_counters`),
-  with the answer cache's as ``cache_hits`` and ``cache_misses``;
+  with the answer cache's as ``cache_hits`` and ``cache_misses``, and every
+  span total and counter of ``repro_torch.core.spans`` (``span_ns.<span>``,
+  ``span_calls.<span>``, ``span_self_ns.<span>``, ``<counter>``);
 - ``close()``.
 
 An adapter of a served model says so with ``KIND = "model"``; the harness
@@ -29,8 +31,9 @@ from __future__ import annotations
 
 
 def program_counters(cache_stats: dict, **more) -> dict:
-    """The program's kernel launches by name, its cache statistics (hits
-    and misses as ``cache_hits``, ``cache_misses``) and ``more``."""
+    """The program's kernel launches by name, ``cache_stats`` (a store's
+    ``cache_stats()``, or ``spans.snapshot()`` alone; hits and misses as
+    ``cache_hits``, ``cache_misses``) and ``more``."""
     from repro_torch.kernels import _lib
 
     cache = {("cache_" + k if k in ("hits", "misses") else k): v for k, v in cache_stats.items()}

@@ -20,6 +20,7 @@ import dataclasses
 
 from hbench.systems import program_counters
 from repro_torch.configs import get_config
+from repro_torch.core import spans
 from repro_torch.serve import Engine, ServeConfig
 
 KIND = "model"
@@ -73,7 +74,7 @@ class System:
             self.engine.scfg = scfg
 
     def counters(self) -> dict:
-        return program_counters({})
+        return program_counters(spans.snapshot())
 
     def close(self) -> None:
         self.engine = None

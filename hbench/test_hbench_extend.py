@@ -1,17 +1,25 @@
 """The harness takes new cells, mixes, configurations and metrics as new
 files alone: a copy of ``hbench/`` gets only files it did not have (and a
-``BENCHMARK.json`` with their entries), and each new cell runs correct on
-the port's ``device="cpu"`` path at a tiny size, its control not.  Among
-them is a served hybrid model (``jamba-v0.1-52b`` at the port's smoke
-widths: Mamba, attention and MoE layers in one period), whose reference
-brings its two new layer parts as files of their own."""
+``BENCHMARK.json`` with their entries, the new cells' names appended to
+the ``workloads`` of the metrics they report), and each new cell passes
+the checks the committed cells pass (``test_hbench_runs.py``), at the
+tiny sizes its own tiny files give, on the port's ``device="cpu"`` path.
+Among them is a served hybrid model (``jamba-v0.1-52b`` at the port's
+smoke widths: Mamba, attention and MoE layers in one period), whose
+reference brings its two new layer parts as files of their own, and
+whose configuration brings a planted fault (``planted/hybrid.py``) that
+``test_hbench_faults.py``'s check catches."""
+import filecmp
 import json
 import os
 import shutil
 
 import pytest
 
-from hbench import harness
+from hbench import faults, harness
+from hbench.test_hbench_faults import planted_run
+from hbench.test_hbench_runs import check_control, check_program
+from hbench.test_hbench_runs import run as run_tiny
 
 TENANTS = {"name": "tenants", "system": "registry", "num_buckets": 32, "retention_partitions": 31, "tenants": 5,
            "values_per_partition": 2048, "pool_partitions": 31, "dtype": "float32",
@@ -86,6 +94,22 @@ def apply(c, p, x, w):
         y = y + mix * ((F.silu(x @ wg[e]) * (x @ wu[e])) @ wd[e])
     return y
 '''
+PLANTED = '''"""The hybrid's own fault: a Mamba decode step that hands its state back
+unchanged, so every later token reads the prefill's state."""
+from repro_torch.models import mamba
+
+
+def state_unchanged(real):
+    def step(cfg, p, x, cache):
+        return real(cfg, p, x, cache)[0], cache
+    return step
+
+
+FAULTS = {"mamba_state_unchanged": lambda mp: mp.setattr(mamba, "decode_mamba_step",
+                                                         state_unchanged(mamba.decode_mamba_step))}
+CASES = [("hybrid.chat", "mamba_state_unchanged")]
+'''
+NONE = {"overrides": {}, "why": "a test's sizes are tiny already"}
 NEW = {
     "configs/tenants.json": TENANTS,
     "configs/ragged.json": RAGGED,
@@ -101,15 +125,30 @@ NEW = {
     # set from this tiny hybrid's readings (CPU, 12 seeds): the program's widest gap 0.0 (float32 both
     # sides), the control's narrowest 0.118 (one turn)
     "limits/hybrid.chat.json": {"limits": {"answers_malformed": 0, "token_gap_sd": 0.04}},
+    **{f"tiny/configs/{n}.json": NONE for n in ("tenants", "ragged", "hybrid")},
+    **{f"tiny/traffic/{n}.json": NONE for n in ("windows_recent", "windows_mixed", "refresh_all", "chat_batch")},
+    **{f"tiny/limits/{n}.json": NONE for n in ("tenants.recent", "tenants.mixed", "tenants.refresh_all", "ragged.daily",
+                                                "hybrid.chat")},
 }
-CODE = {"reference/layers/mamba.py": MAMBA, "reference/layers/moe.py": MOE}
 CELLS = {"tenants.recent": ("tenants", "windows_recent"), "tenants.mixed": ("tenants", "windows_mixed"),
          "tenants.refresh_all": ("tenants", "refresh_all"), "ragged.daily": ("ragged", "daily_publish"),
          "hybrid.chat": ("hybrid", "chat_batch")}
+# each end-to-end metric -> the new cells that report it, appended to its workloads
+REPORTS = {"answer_p50_ms": ["tenants.recent", "tenants.mixed", "tenants.refresh_all"],
+           "ingest_values_per_s": ["ragged.daily"], "output_tokens_per_s": ["hybrid.chat"]}
 METRIC = '''def read(run):
     c = run["counters"]
     return c["host_row_copies"] / c["requests"] if c.get("requests") else None
 '''
+# a reader of a program span's total, which the engine's adapter passes through its counters
+SPAN_METRIC = '''def read(run):
+    c = run["counters"]
+    ns = c.get("span_ns.engine.generate")
+    return ns / c["turns"] / 1e6 if ns and c.get("turns") else None
+'''
+CODE = {"reference/layers/mamba.py": MAMBA, "reference/layers/moe.py": MOE, "planted/hybrid.py": PLANTED,
+        "metrics/host_row_copies_per_request.query.py": METRIC, "metrics/generate_ms_per_turn.serve.py": SPAN_METRIC}
+SEED = 2**31 + 77
 
 
 @pytest.fixture(scope="module")
@@ -117,22 +156,25 @@ def root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("checkout"))
     shutil.copytree(harness.HERE, os.path.join(root, "hbench"), ignore=shutil.ignore_patterns("__pycache__"))
     bench = harness.with_deferred(harness.load_bench())
-    for rel, body in NEW.items():
+    for rel, body in {**NEW, **CODE}.items():
+        path = os.path.join(root, "hbench", rel)
         assert not os.path.exists(os.path.join(harness.HERE, rel)), rel
-        with open(os.path.join(root, "hbench", rel), "w") as f:
-            json.dump(body, f)
-    for rel, body in {os.path.join("metrics", "host_row_copies_per_request.query.py"): METRIC, **CODE}.items():
-        assert not os.path.exists(os.path.join(harness.HERE, rel)), rel
-        with open(os.path.join(root, "hbench", rel), "w") as f:
-            f.write(body)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            if rel.endswith(".py"):
+                f.write(body)
+            else:
+                json.dump(body, f)
     bench["configs"] += [{"name": n, "source": "a test", "file": f"hbench/configs/{n}.json", "reduced": [], "why": "a test"}
                          for n in ("tenants", "ragged", "hybrid")]
     bench["workloads"] += [{"name": w, "config": c, "traffic": t, "chips": 1, "why": "a test"} for w, (c, t) in CELLS.items()]
     for m in bench["end_to_end"]:
-        m.pop("workloads", None)
+        m.get("workloads", []).extend(REPORTS.get(m["name"], []))
     bench["per_layer"] = [
         {"name": "host_row_copies_per_request.query", "unit": "copies", "better": "lower", "source": "program_counter",
          "layer": "interval tree", "moves": "answer_p50_ms", "workloads": ["tenants.recent"]},
+        {"name": "generate_ms_per_turn.serve", "unit": "ms", "better": "lower", "source": "program_span",
+         "layer": "serving engine", "moves": "output_tokens_per_s", "workloads": ["hybrid.chat"]},
         *[m for m in bench["per_layer"] if m["name"] == "cache_hit_share.query"],
     ]
     bench["per_layer"][-1]["workloads"] = ["tenants.recent"]
@@ -142,21 +184,56 @@ def root(tmp_path_factory):
 
 
 def run(root, name, control=False, trace=False):
-    over = {"traffic": {"beta": 16}} if name == "ragged.daily" else {}
-    return harness.run_cell(name, 2**31 + 77, 0.6, trace, device="cpu", control=control, overrides=over, root=root)
+    return run_tiny(name, control, seed=SEED, trace=trace, bench=harness.load_bench(root), root=root)
 
 
 @pytest.mark.parametrize("name", sorted(CELLS))
 def test_a_cell_of_new_files_runs_correct(root, name):
     out = run(root, name)
-    assert out["correct"] and out["failed"] == 0, out
+    check_program(out, name, harness.load_bench(root))
     assert set(out["checks"]) == set(harness.cell_limits(name, root))
 
 
 @pytest.mark.parametrize("name", sorted(CELLS))
 def test_a_cell_of_new_files_fails_its_control(root, name):
-    out = run(root, name, control=True)
-    assert out["failed"] == 0 and not out["correct"], out
+    check_control(run(root, name, control=True))
+
+
+def test_a_fault_a_new_configuration_plants_is_not_correct(root, monkeypatch):
+    plants, cases = faults.planted(root)
+    assert cases == [("hybrid.chat", "mamba_state_unchanged")]
+    for name, fault in cases:
+        with monkeypatch.context() as mp:
+            out = planted_run(mp, name, fault, plants, harness.load_bench(root), root)
+        assert out["failed"] == 0 and not out["correct"], out
+
+
+def test_a_new_reader_reads_a_program_span_the_engines_adapter_passes_through(root, monkeypatch):
+    from repro_torch.core import spans
+    from repro_torch.serve import Engine
+
+    monkeypatch.setitem(spans.SPANS, "engine.generate", "one generate call")
+    monkeypatch.setitem(spans._SPAN_TOTALS, "engine.generate", [0, 0, 0])
+    real = Engine.generate
+
+    def generate(self, *args, **kw):
+        with spans.span("engine.generate"):
+            return real(self, *args, **kw)
+
+    monkeypatch.setattr(Engine, "generate", generate)
+    out = run(root, "hybrid.chat", trace=True)
+    assert out["correct"], out
+    assert set(out["metrics"]) == {"generate_ms_per_turn.serve"}
+    assert out["metrics"]["generate_ms_per_turn.serve"]["value"] > 0
+
+
+def test_the_copy_edits_no_file_of_the_original(root):
+    for folder, dirs, files in os.walk(harness.HERE):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for name in files:
+            original = os.path.join(folder, name)
+            assert filecmp.cmp(original, os.path.join(root, "hbench", os.path.relpath(original, harness.HERE)),
+                               shallow=False), original
 
 
 def test_a_new_metric_reads_a_program_counter_the_adapter_passes_through(root):

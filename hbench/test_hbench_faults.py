@@ -1,24 +1,39 @@
 """A run with the timed path broken underneath comes out not correct:
-each fault that a cell can have (``faults.py``), planted in the program
-(the port's ``device="cpu"`` path)."""
+each fault that a cell can have (``faults.py``, and those a configuration
+brings in ``planted/<config>.py``), planted in the program (the port's
+``device="cpu"`` path)."""
 import numpy as np
 import pytest
 
-from hbench import harness, tiny
+from hbench import faults, harness, tiny
 from hbench.data import Pool
-from hbench.faults import FAULTS
 from hbench.reference.exact import Reference
 
 from repro_torch.core.stream import HistogramStore
 from repro_torch.core.tenant import TenantRegistry
 
 BENCH = harness.with_deferred(harness.load_bench())
+FAULTS, PLANTED = faults.planted()
 
 
-def run(name, seconds=0.6):
-    cell = next(w for w in BENCH["workloads"] if w["name"] == name)
-    return harness.run_cell(name, 987654321, seconds, False, device="cpu",
-                            overrides=tiny.overrides(cell), bench=BENCH)
+def planted_run(monkeypatch, name, fault, plants=FAULTS, bench=BENCH, root=harness.ROOT):
+    """Cell ``name`` at its tiny sizes in the checkout ``root``, with
+    ``plants[fault]`` planted: once set-up is done, or, for a served model
+    (its adapter's ``KIND``), whose run has no store set-up, before it."""
+    cell, cfg, _ = harness.cell_parts(bench, name, root)
+    if harness.is_model(cfg, root):
+        plants[fault](monkeypatch)
+    else:
+        real = harness.set_up
+
+        def set_up(*args, **kw):
+            out = real(*args, **kw)
+            plants[fault](monkeypatch)
+            return out
+
+        monkeypatch.setattr(harness, "set_up", set_up)
+    return harness.run_cell(name, 987654321, 0.6, False, device="cpu", overrides=tiny.overrides(cell, root),
+                            bench=bench, root=root)
 
 
 CASES = [
@@ -36,19 +51,9 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("name,fault", CASES)
+@pytest.mark.parametrize("name,fault", CASES + PLANTED)
 def test_a_planted_fault_is_not_correct(monkeypatch, name, fault):
-    real = harness.set_up
-
-    def set_up(*args, **kw):  # the fault is planted once set-up is done
-        out = real(*args, **kw)
-        FAULTS[fault](monkeypatch)
-        return out
-
-    monkeypatch.setattr(harness, "set_up", set_up)
-    if name.startswith("qwen3"):  # a served model's run has no store set-up: planted before it
-        FAULTS[fault](monkeypatch)
-    out = run(name)
+    out = planted_run(monkeypatch, name, fault)
     assert not out["correct"], out
 
 

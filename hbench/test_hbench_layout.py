@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from hbench import harness
+from hbench import harness, tiny
 
 BENCH = harness.load_bench()
 ALL = harness.with_deferred(BENCH)  # with the cells kept out of it (``deferred/``)
@@ -21,6 +21,21 @@ def test_every_cell_finds_its_config_traffic_and_system():
         assert harness.system_class(cfg, False).__name__ == "System"
         limits = harness.cell_limits(w["name"])
         assert limits and all(v >= 0 for v in limits.values())
+
+
+def test_every_cell_has_its_three_tiny_files():
+    for w in ALL["workloads"]:
+        over = tiny.overrides(w)
+        assert set(over) == {"config", "traffic", "limits"}, w["name"]
+        cfg, traffic = harness.cell_parts(ALL, w["name"])[1:]
+        assert set(over["config"]) <= set(cfg) and set(over["traffic"]) <= set(traffic), w["name"]
+        assert set(over["limits"]) <= set(harness.cell_limits(w["name"])), w["name"]
+
+
+def test_a_missing_tiny_file_is_a_layout_error_that_names_it():
+    cell = {**ALL["workloads"][0], "traffic": "no_such_mix"}
+    with pytest.raises(tiny.LayoutError, match=r"tiny/traffic/no_such_mix\.json"):
+        tiny.overrides(cell)
 
 
 def test_every_per_layer_metric_has_a_reader_that_reads_nothing_from_an_empty_run():

@@ -15,19 +15,19 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 TOP = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
-def run(name, control=False, seconds=0.6, seed=2**31 + 12345):
-    cell = next(w for w in BENCH["workloads"] if w["name"] == name)
-    return harness.run_cell(name, seed, seconds, False, device="cpu", control=control,
-                            overrides=tiny.overrides(cell), bench=BENCH)
+def run(name, control=False, seconds=0.6, seed=2**31 + 12345, trace=False, bench=BENCH, root=harness.ROOT):
+    """One run of cell ``name`` at its tiny sizes in the checkout ``root``."""
+    cell = next(w for w in bench["workloads"] if w["name"] == name)
+    return harness.run_cell(name, seed, seconds, trace, device="cpu", control=control,
+                            overrides=tiny.overrides(cell, root), bench=bench, root=root)
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_the_program_is_correct_and_the_line_keeps_its_schema(name):
-    out = run(name)
+def check_program(out, name, bench=BENCH):
+    """What a sound run's result line holds: correct, and in its schema."""
     assert out["correct"], out
     assert TOP <= set(out) and list(out)[-1] == "checks"
     assert out["attempted"] > 0 and out["failed"] == 0
-    want = {m["name"] for m in BENCH["end_to_end"] if harness.applies(m, name)}
+    want = {m["name"] for m in bench["end_to_end"] if harness.applies(m, name)}
     assert set(out["metrics"]) == want
     assert all(set(v) == {"value", "unit"} for v in out["metrics"].values())
     assert set(out["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
@@ -36,11 +36,20 @@ def test_the_program_is_correct_and_the_line_keeps_its_schema(name):
     json.dumps(out)
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_the_control_one_precision_down_is_not_correct(name):
-    out = run(name, control=True)
+def check_control(out):
+    """The control's run ends, and a number it compared is past its limit."""
     assert out["failed"] == 0 and not out["correct"], out
     assert any(c["value"] > c["limit"] for c in out["checks"].values())
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_program_is_correct_and_the_line_keeps_its_schema(name):
+    check_program(run(name), name)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_one_precision_down_is_not_correct(name):
+    check_control(run(name, control=True))
 
 
 def test_run_without_a_card_prints_no_result():
@@ -69,14 +78,18 @@ def test_nothing_the_benchmark_runs_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    configs = os.path.join(harness.HERE, "configs")
+    served = [os.path.join(configs, n) for n in sorted(os.listdir(configs))
+              if harness.is_model(harness._json(os.path.join(configs, n)))]
+    assert served
     code = (
         "import sys; sys.path[:0] = [{root!r}]\n"
         "import hbench.reference.exact, hbench.reference.control, hbench.cost, hbench.traffic, hbench.data\n"
         "import json, hbench.model_cost, hbench.reference.model as m\n"
-        "c = json.load(open({root!r} + '/hbench/configs/qwen3_8b.json'))\n"
-        "m.Decoder(c, {root!r} + '/hbench/reference/layers')\n"
+        "for path in {served!r}:\n"
+        "    m.Decoder(json.load(open(path)), {root!r} + '/hbench/reference/layers')\n"
         "print(sorted({{m.split('.')[0] for m in sys.modules}} & {{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}}))\n"
-    ).format(root=harness.ROOT)
+    ).format(root=harness.ROOT, served=served)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]

@@ -67,6 +67,34 @@ def test_parse_tags_device_work_with_the_span_that_launched_it():
     assert [k for k, _ in p["breakdown"]["device_ops"]][0].startswith("void hk::onesweep")
 
 
+def test_parse_tags_device_work_with_the_innermost_program_span_of_the_launching_thread():
+    t = {"traceEvents": [
+        _ev("hbench.stretch", "user_annotation", 0, 100),
+        _ev("hbench.ingest", "user_annotation", 0, 60),
+        _ev("store.ingest", "user_annotation", 1, 50),
+        _ev("store.pad", "user_annotation", 1, 1),  # starts with store.ingest, inside it
+        _ev("store.h2d", "user_annotation", 3, 10),
+        _ev("store.sort", "user_annotation", 20, 10),
+        _ev("pool.worker", "user_annotation", 0, 100, tid=2),  # another thread's span
+        _ev("cudaMemsetAsync", "cuda_runtime", 1.5, 0.2, correlation=1),
+        _ev("cudaMemcpyAsync", "cuda_runtime", 4, 1, correlation=2),
+        _ev("cudaLaunchKernel", "cuda_runtime", 21, 1, correlation=3),
+        _ev("cudaLaunchKernel", "cuda_runtime", 40, 1, correlation=4),
+        _ev("cudaLaunchKernel", "cuda_runtime", 70, 1, correlation=5),
+        _ev("Memset (Device)", "gpu_memset", 2, 1, tid=7, correlation=1),
+        _ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 5, 15, tid=7, correlation=2),
+        _ev("void hk::onesweep_kernel<false, false>", "kernel", 22, 5, tid=7, correlation=3),
+        _ev("void hk::gather_cuts_kernel", "kernel", 41, 2, tid=7, correlation=4),
+        _ev("void hk::resident_merge_kernel<8, 4>", "kernel", 71, 5, tid=7, correlation=5),
+    ]}
+    p = trace.parse(t)
+    assert all(len(d) == 5 for d in p["device"]) and len(p["program_spans"]) == len(p["device"])
+    got = [(d[0].split()[0], d[4], ps) for d, ps in zip(p["device"], p["program_spans"])]
+    assert got == [("Memset", "hbench.ingest", "store.pad"), ("Memcpy", "hbench.ingest", "store.h2d"),
+                   ("void", "hbench.ingest", "store.sort"), ("void", "hbench.ingest", "store.ingest"),
+                   ("void", None, None)]  # the last launched outside any span of its thread
+
+
 def test_roofline_readers_on_a_synthetic_trace():
     tr = {"stretch": (0.0, 1e6), "busy_us": 0.0, "ingest_ns": [1000, 3000],
           "query_batches": [([(0, 0, 30), (0, 3, 4)], 1)],

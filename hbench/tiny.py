@@ -1,34 +1,36 @@
 """Each cell cut to a size the CPU tests run in about a second: the same
 loops, adapters, reference and checks, on the plain versions of the
-program's kernels (``device="cpu"``).  A limit that depends on the size
-(a served model's logit gap) is set anew for the tiny size."""
+program's kernels (``device="cpu"``).
+
+A cell's tiny sizes are found by name, as its full-size parts are:
+``tiny/configs/<config>.json``, ``tiny/traffic/<traffic>.json`` and
+``tiny/limits/<workload>.json``, each ``{"overrides": {key: value},
+"why": ...}``, the keys that replace the full-size file's.  A limit that
+depends on the size (a served model's logit gap) is set anew for the tiny
+size in its limits file."""
 from __future__ import annotations
 
-import copy
+import json
+import os
 
-CONFIG = {
-    "paper_month": {"values_per_partition": 5000, "num_buckets": 64, "pool_partitions": 7},
-    # qwen3-8b's smoke widths (repro_torch.configs.smoke), two layers
-    "qwen3_8b": {"hidden_size": 128, "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 32,
-                 "intermediate_size": 256, "vocab_size": 512, "num_hidden_layers": 2},
-}
-TRAFFIC = {
-    "daily_publish": {"beta": 16},
-    "windows_uniform": {"beta": 16, "rate_per_s": 300, "check_answers": 100},
-    "offline_batch": {"batch": 8, "prompt_tokens": 24, "new_tokens": 24},
-}
+from hbench import harness
+
+# part of a run -> the folder under tiny/ and the cell's key that names its file
+PARTS = {"config": ("configs", "config"), "traffic": ("traffic", "traffic"), "limits": ("limits", "name")}
 
 
-# a served model's limit at its tiny size, set as the full cell's was, from
-# readings of this size (CPU, 13 seeds): the program's widest gap 0.0212 (up
-# to 11 turns judged), the float8 control's narrowest 0.0700 (one turn)
-LIMITS = {
-    "qwen3_8b.offline": {"token_gap_sd": 0.04},
-}
+class LayoutError(LookupError):
+    """A cell lacks one of its tiny files."""
 
 
-def overrides(cell: dict) -> dict:
-    out = {"config": CONFIG[cell["config"]], "traffic": TRAFFIC[cell["traffic"]]}
-    if cell["name"] in LIMITS:
-        out["limits"] = LIMITS[cell["name"]]
-    return copy.deepcopy(out)
+def overrides(cell: dict, root: str = harness.ROOT) -> dict:
+    """The tiny sizes of ``cell`` in the checkout ``root``: ``{"config":
+    ..., "traffic": ..., "limits": ...}``, for ``harness.run_cell``."""
+    out = {}
+    for part, (folder, key) in PARTS.items():
+        path = harness.part_path(root, os.path.join("tiny", folder), cell[key], ".json")
+        if not os.path.isfile(path):
+            raise LayoutError(f"cell {cell['name']!r} has no tiny {part} file {path}")
+        with open(path) as f:
+            out[part] = json.load(f)["overrides"]
+    return out

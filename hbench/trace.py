@@ -2,7 +2,10 @@
 
 ``torch.profiler`` (CPU and CUDA activities) records the stretch; its
 Chrome trace is read back into device intervals, each tagged with the
-harness span (``hbench.<name>``) inside which the host launched it.  Busy
+harness span (``hbench.<name>``) inside which the host launched it, and
+with the innermost program span (a ``record_function`` span of the
+program, such as ``core/spans.py``'s ``store.sort``) open on the
+launching thread at the launch.  Busy
 time is the **union** of the kernel, copy and memset intervals, so a copy
 that overlaps a kernel counts once.  A launch with no device record is
 counted as lost: a trace opened on an idle card can drop records, which
@@ -54,11 +57,36 @@ def gaps(intervals, lo: float, hi: float) -> list[tuple[float, float]]:
     return [(s, e) for s, e in out if e > s]
 
 
+def _innermost(intervals):
+    """``at(t)``: the name of the latest-starting of ``intervals``
+    ``[(start, end, name)]`` around ``t``, or ``None``.  The intervals nest,
+    as one thread's host spans and ops do, so that one is the innermost."""
+    ivs = sorted(intervals, key=lambda iv: (iv[0], -iv[1]))  # of two that start together, the outer first
+    starts = [iv[0] for iv in ivs]
+    reach, last = [], float("-inf")  # reach[k]: the latest end among ivs[:k + 1]
+    for iv in ivs:
+        last = max(last, iv[1])
+        reach.append(last)
+
+    def at(t: float):
+        k = bisect.bisect_right(starts, t) - 1
+        while k >= 0 and reach[k] >= t:
+            if ivs[k][1] >= t:
+                return ivs[k][2]
+            k -= 1
+        return None
+
+    return at
+
+
 def parse(trace: dict) -> dict:
     """The parts of a Chrome trace the readers use (times in µs):
     ``stretch`` ``(start, end)``, ``spans`` ``[(start, end, name)]`` of the
     harness's spans, ``device`` ``[(name, cat, start, end,
-    span)]``, ``busy_us``, ``lost`` launches, and the ``breakdown``."""
+    span)]``, ``program_spans`` (for each ``device`` interval, in its
+    order, the innermost program span open on the launching thread when it
+    was launched, or ``None``), ``busy_us``, ``lost`` launches, and the
+    ``breakdown``."""
     evs = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
     stretch = next((e for e in evs if e.get("name") == STRETCH and e.get("cat") == "user_annotation"), None)
     if stretch is None:
@@ -76,11 +104,22 @@ def parse(trace: dict) -> dict:
         i = bisect.bisect_right(starts, t) - 1
         return spans[i][2] if i >= 0 and spans[i][1] >= t else None
 
+    by_thread: dict = {}  # (pid, tid) -> that thread's program spans
+    for e in evs:
+        if e.get("cat") == "user_annotation" and not e["name"].startswith("hbench."):
+            by_thread.setdefault((e.get("pid"), e.get("tid")), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]))
+    program_at = {k: _innermost(v) for k, v in by_thread.items()}
+
+    def program_span(launch: dict):
+        at = program_at.get((launch.get("pid"), launch.get("tid")))
+        return at(float(launch["ts"])) if at else None
+
     launches = {}
     for e in evs:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
             launches[e["args"]["correlation"]] = e
-    device, seen = [], set()
+    device, program, seen = [], [], set()
     for e in evs:
         if e.get("cat") not in DEVICE_CATS:
             continue
@@ -91,6 +130,7 @@ def parse(trace: dict) -> dict:
         seen.add(corr)
         launch = launches.get(corr)
         device.append((e["name"], e["cat"], s, end, span_at(float(launch["ts"])) if launch else None))
+        program.append(program_span(launch) if launch else None)
     lost = sum(
         1
         for c, e in launches.items()
@@ -101,26 +141,11 @@ def parse(trace: dict) -> dict:
     by_name: dict[str, float] = {}
     for name, _, s, e, _ in device:
         by_name[name] = by_name.get(name, 0.0) + (min(e, hi) - max(s, lo))
-    host = sorted(
+    innermost_op = _innermost(
         (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
         for e in evs
-        if e.get("tid") == main and e.get("cat") in ("cpu_op", "user_annotation") and e["name"] != STRETCH
+        if e.get("tid") == main and e.get("cat") in ("cpu_op", "user_annotation") and not e["name"].startswith("hbench.")
     )
-    host_starts = [h[0] for h in host]
-    reach, last = [], float("-inf")  # reach[k]: the latest end among host[:k + 1]
-    for h in host:
-        last = max(last, h[1])
-        reach.append(last)
-
-    def innermost_op(t: float):
-        # host ops nest on one thread: the latest-starting op around t is the innermost
-        k = bisect.bisect_right(host_starts, t) - 1
-        while k >= 0 and reach[k] >= t:
-            h = host[k]
-            if h[1] >= t and not h[2].startswith("hbench."):
-                return h[2]
-            k -= 1
-        return None
 
     labelled: dict[str, float] = {}
     for s, e in sorted(gaps(intervals, lo, hi), key=lambda g: g[0] - g[1])[:200]:
@@ -134,6 +159,7 @@ def parse(trace: dict) -> dict:
         "stretch": (lo, hi),
         "spans": spans,
         "device": device,
+        "program_spans": program,
         "busy_us": busy,
         "lost": lost,
         "breakdown": {"device_ops": top(by_name), "idle_gaps": top(labelled)},
