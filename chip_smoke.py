@@ -24,6 +24,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    back-to-back calls;
    and the tile Summarizer over streams holding NaN, ±inf and ±0,
    bit-equal to its CPU run;
+   2d. the decode attention kernel at the served cell's shape (104 rows, a
+   bfloat16 cache of 1,152 positions, the token at 1,088) against the
+   plain body (one bfloat16 ulp), its ms beside its byte bound and the
+   plain body's ms, and wall and device µs a call over 100 calls;
 3. the main path at the paper's configuration: ``HistogramStore`` with
    T=2032 on the card, ``ingest_many`` of 31 × 200,000 seeded Gumbel values,
    ``query_many`` of all 496 windows at β=254 — bit-equal to the same run on
@@ -187,6 +191,7 @@ try:  # the card's figures and each kernel's bytes and operations: one copy, in 
         PEAK_FLOPS,
         bound_s,
         bucket_count_cost,
+        decode_attention_cost,
         kv_sort_cost,
         merge_bytes,
         merge_cost,
@@ -826,6 +831,125 @@ def bucket_count_shapes(dev) -> list[dict]:
         out.append(row)
         log("bucket count shape " + json.dumps(row))
     return out
+
+
+def decode_attention_shape(dev) -> dict:
+    """The decode attention kernel at the served cell's shape (Qwen3-8B,
+    104 rows, a bfloat16 cache of 1,152 positions, the token at 1,088):
+    held to the plain body on the card (one bfloat16 ulp), then timed by
+    CUDA events beside the plain body and its byte bound, and over 100
+    back-to-back calls (``calls_breakdown``: wall and device µs a call).
+    Each call reads 464 MB, over nine times the L2 cache, so every call
+    finds the cache cold."""
+    import torch
+
+    from repro_torch.kernels import gqa_decode
+    from repro_torch.models import common
+
+    B, Smax, Hkv, G, hd, pos = 104, 1152, 8, 4, 128, 1088
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    q = torch.randn((B, 1, Hkv, G, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Smax, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Smax, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    got = gqa_decode.decode_attention(q, k, v, pos)
+    want = common.plain_decode_attention(q, k, v, pos)
+    diff = (got.float() - want.float()).abs()
+    w = want.float()
+    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8))
+    past_ulp = diff - ulp  # tests/test_torch_cuda.py's tolerance: one ulp + 1e-5
+    worst = int(torch.argmax(past_ulp))
+    assert float(past_ulp.max()) <= 1e-5, f"decode attention: {float(past_ulp.max())} past one bfloat16 ulp"
+    ms = cuda_ms(lambda: gqa_decode.decode_attention(q, k, v, pos), reps=50)
+    plain = cuda_ms(lambda: common.plain_decode_attention(q, k, v, pos))
+    b, by = bound_ms(*decode_attention_cost(B, Hkv, G, hd, pos + 1, 2, 2))
+    _, _, chunk, splits = gqa_decode.plan(B, Hkv, Smax, pos, None, torch.cuda.get_device_properties(dev).multi_processor_count)
+    calls = calls_breakdown(lambda: gqa_decode.decode_attention(q, k, v, pos))
+    host = decode_host_us(dev)
+    step = decode_step_copies(dev)
+    out = dict(max_abs_err=float(diff.max()), max_past_one_ulp=float(past_ulp.max()),
+               beyond_one_ulp=int((past_ulp > 0).sum()), worst=(float(w.view(-1)[worst]), float(diff.view(-1)[worst])),
+               ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+               library_ms=None, shape=f"B {B}, Smax {Smax}, Hkv {Hkv}, G {G}, hd {hd}, bf16, position {pos}",
+               chunk=chunk, splits=splits, wall_us=calls["wall_us"], device_us=calls["device_us"],
+               device_ops=calls["device_ops"], device_us_by_item=calls["device_us_by_item"], host_us=host,
+               decode_step=step)
+    log(f"decode attention {out['shape']}: {ms:.4f} ms ({b / ms * 100:.1f} % of the byte bound {b:.4f} ms), "
+        f"plain {plain:.3f} ms; {splits} splits of {chunk}; a call {calls['wall_us']:.1f} us wall, "
+        f"{calls['device_us']:.1f} us device, {calls['device_ops']:.0f} device ops; max abs err "
+        f"{out['max_abs_err']:.3g}, {out['beyond_one_ulp']} of {w.numel()} outputs past one ulp, worst {out['worst']}")
+    log(f"decode attention host us a call (1 row, 64 positions): {json.dumps(host)}")
+    log(f"decode step, Qwen3-8B at 2 layers, 104 rows at 1,088: {json.dumps(step)}")
+    return out
+
+
+def decode_host_us(dev, reps: int = 2000) -> dict:
+    """Wall µs a call, kernel and plain body, at a shape whose device time
+    is a few µs (1 row, 8 KV heads of 4 query heads, 64 bfloat16
+    positions): the host's cost of a call, which bounds a decode step
+    whose device work is short."""
+    import torch
+
+    from repro_torch.kernels import gqa_decode
+    from repro_torch.models import common
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    q = torch.randn((1, 1, 8, 4, 128), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 64, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    out = {}
+    for name, fn in (("kernel", gqa_decode.decode_attention), ("plain", common.plain_decode_attention)):
+        fn(q, k, k, 63)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(q, k, k, 63)
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def decode_step_copies(dev) -> dict:
+    """One ``decode_step`` of Qwen3-8B at full width and 2 layers (an
+    ``Engine``'s bfloat16 run weights, 104 rows, a random bfloat16 cache
+    of 1,152 positions, the token at 1,088), traced with input shapes:
+    its device ops by name, the decode attention kernel's launches, and
+    every copy or cast whose input has a cache layer's shape (none
+    expected: the kernel reads the cache in place)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_model
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    B, Smax, pos = 104, 1152, 1088
+    cfg = dataclasses.replace(get_config("qwen3-8b"), repeats=2)
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + 32), device=dev)
+        eng = Engine(cfg, params, ServeConfig(max_seq=Smax, max_new_tokens=1), device=dev)
+        cache = tree_map(lambda t: t.normal_(), init_cache(cfg, B, Smax, torch.bfloat16, dev))
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, dtype=torch.int32)
+        decode_step(cfg, eng._run, cache, tok, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            decode_step(cfg, eng._run, cache, tok, pos)
+            torch.cuda.synchronize()
+    layer = [B, Smax, cfg.num_kv_heads, cfg.head_dim]
+    copies = [(e.key, e.input_shapes) for e in prof.key_averages(group_by_input_shape=True)
+              if e.key in ("aten::_to_copy", "aten::copy_", "aten::clone", "aten::contiguous", "aten::to")
+              and any(sorted(s) == sorted(layer) for s in e.input_shapes if isinstance(s, list))]
+    items, ops = device_items(prof)
+    kernel = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "decode_kernel" in e.key)
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    assert not copies, f"decode step copies a cache layer: {copies}"
+    assert kernel == cfg.repeats * len(cfg.pattern), kernel
+    top = sorted(items.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ops": ops, "decode_kernel_launches": kernel, "cache_copies": len(copies),
+            "device_us": sum(items.values()), "top_us": [[k[:60], v] for k, v in top]}
 
 
 def sort_sweep(dev) -> dict:
@@ -3434,6 +3558,7 @@ def main() -> int:
     meas = phase("2 kernels vs plain", lambda: check_kernels(dev, rng))
     sorts = phase("2b sort sweep", lambda: sort_sweep(dev))
     counts = phase("2c bucket count shapes", lambda: bucket_count_shapes(dev))
+    decode = phase("2d decode attention", lambda: decode_attention_shape(dev))
     with MergeShapes() as shapes:
         main_path = phase("3 paper config", lambda: paper_config(dev))
         big = phase("4 scale", lambda: scale(dev))
@@ -3470,7 +3595,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": replaces[name][0], "replaces": replaces[name][1],
          "launches": total[name], **meas[name]}
         for name in replaces
-    ]}
+    ] + [{"name": "decode_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+          "replaces": None, "launches": total["decode_attention"], **decode}]}
     log(json.dumps(line))
     log(json.dumps({"build_s": build_s, "launches_by_path": per_path, "merge_split": meas["merge_split"],
                     "paper": times, "scale": big,

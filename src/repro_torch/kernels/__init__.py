@@ -12,9 +12,13 @@
 The public entry points of :mod:`.ops` sit on them: :func:`bucket_sizes`,
 the tile Summarizer :func:`summarize_tiles` and :func:`merge_histograms`.
 
-Every wrapper runs its plain version (:mod:`repro_torch.kernels.ref`) for
-a CPU tensor and its kernel for a CUDA tensor; :data:`LAUNCHES` counts the
-kernel launches.  The kernels are compiled at first use (``_lib.build``).
+Every wrapper above runs its plain version (:mod:`repro_torch.kernels.ref`)
+for a CPU tensor and its kernel for a CUDA tensor.  The model's decode
+attention core (:func:`.gqa_decode.decode_attention`,
+``csrc/decode_attention.cu``, which replaces no TPU kernel) takes CUDA
+tensors only: ``models.common.decode_attention`` keeps its plain body for
+the others.  :data:`LAUNCHES` counts the kernel launches.  The kernels are
+compiled at first use (``_lib.build``).
 """
 from repro_torch.kernels import ref
 from repro_torch.kernels._lib import LAUNCHES, build, reset_launches

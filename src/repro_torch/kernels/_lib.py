@@ -42,6 +42,7 @@ KERNELS = {
     "sort_kv": "kv_sort.cu",
     "merge_cut": "merge_cut.cu",
     "bucket_count": "bucket_count.cu",
+    "decode_attention": "decode_attention.cu",
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -66,12 +67,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
+_FLT = ctypes.c_float
 _SIGNATURES = {
     "hk_row_sort": [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 3,
     "hk_row_gather": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR],
     "hk_kv_sort": [_PTR] * 4 + [_INT] * 6 + [_PTR] * 6,
     "hk_merge_cut": [_PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR, _PTR, _PTR],
     "hk_bucket_count": [_PTR, _I64, _PTR] + [_INT] * 3 + [_PTR, _PTR],
+    "hk_decode_attention": [_PTR] * 5 + [_INT] * 11 + [_FLT, _FLT, _PTR],
 }
 
 

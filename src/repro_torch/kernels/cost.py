@@ -16,7 +16,8 @@ import math
 
 __all__ = [
     "CARD", "F32_FLOPS", "HBM_BW", "HBM_BYTES", "NETWORK_BW", "NODE_GPUS", "NVLINK_BW", "PEAK_FLOPS",
-    "bound_s", "bucket_count_cost", "kv_sort_cost", "merge_bytes", "merge_cost", "row_sort_cost",
+    "bound_s", "bucket_count_cost", "decode_attention_cost", "kv_sort_cost", "merge_bytes", "merge_cost",
+    "row_sort_cost",
 ]
 
 # ---- hardware constants (one NVIDIA H100 SXM 80 GB, 700 W) -----------------
@@ -68,3 +69,13 @@ def bucket_count_cost(N: int, T1: int) -> tuple[float, float]:
     """``cumulative_counts`` of N 4-byte values against T1 boundaries: the
     values read once, a binary search each."""
     return 4.0 * N, N * math.log2(max(T1, 2))
+
+
+def decode_attention_cost(B: int, Hkv: int, G: int, hd: int, n: int, kv_bytes: int, q_bytes: int) -> tuple[float, float]:
+    """The decode attention of B rows of Hkv KV heads, G query heads each,
+    against n visible cache positions of hd ``kv_bytes`` elements: K and V
+    of the visible positions read once, q read and the output written once;
+    2·hd operations a (query head, position) for the score and 2·hd for the
+    PV product."""
+    heads = B * Hkv
+    return 2.0 * heads * n * hd * kv_bytes + 2.0 * heads * G * hd * q_bytes, 4.0 * heads * G * n * hd

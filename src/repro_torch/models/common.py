@@ -9,8 +9,10 @@ specs come from separate functions beside each ``init_*``
 
 The attention core computes in float32 whatever the compute dtype
 (logits, probabilities and the PV product), as the reference does, and
-masks with ``-1e30``, not ``-inf``.  It is plain torch: the reference's is
-plain ``jnp`` outside any Pallas kernel.
+masks with ``-1e30``, not ``-inf``.  It is plain torch, as the reference's
+is plain ``jnp`` outside any Pallas kernel, except the decode's core on the
+card: a hand-written kernel with the same float32 arithmetic
+(:func:`decode_attention`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import gqa_decode
 
 Params = Any  # nested dict of tensors
 
@@ -182,8 +186,29 @@ def decode_attention(
     window: int | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
+    """One query token against its cache, keys masked to
+    ``kv_pos <= position`` (and the window): :func:`plain_decode_attention`
+    on the CPU (and on ``meta`` tensors), the hand-written kernel
+    (``kernels/csrc/decode_attention.cu``) on the card, which reads the
+    cache once, in place, with the same float32 arithmetic; only the order
+    of its sums differs.  The kernel raises on what it does not take."""
+    if q.is_cuda:
+        return gqa_decode.decode_attention(q, k_cache, v_cache, position, window=window, logit_cap=logit_cap)
+    return plain_decode_attention(q, k_cache, v_cache, position, window=window, logit_cap=logit_cap)
+
+
+def plain_decode_attention(
+    q: torch.Tensor,  # (B, 1, Hkv, G, hd)
+    k_cache: torch.Tensor,  # (B, Smax, Hkv, hd)
+    v_cache: torch.Tensor,
+    position: int,
+    *,
+    window: int | None = None,
+    logit_cap: float | None = None,
+) -> torch.Tensor:
     """One query token against the whole ``Smax`` cache, keys masked to
-    ``kv_pos <= position`` (and the window)."""
+    ``kv_pos <= position`` (and the window), in float32 over a float32 copy
+    of the cache."""
     Smax = k_cache.shape[1]
     hd = q.shape[-1]
     scale = hd**-0.5

@@ -9,6 +9,7 @@ the reference package, so it runs on the GPU host as it is::
 Tolerance: bit-equal (``torch.equal``); the row sort compares NaN masks
 and the non-NaN values, so ±0 compare equal.
 """
+import dataclasses
 import os
 import shutil
 
@@ -654,6 +655,86 @@ def test_cuda_model_path_matches_cpu_at_smoke_width(cuda, arch):
                         assert int(torch.argmax(last[i])) == fed[i, 0], (i, step)
             logits, cache = decode_step(cfg, gpu, cache, fed, L + step)
     assert all(len(g) == len(w) for g, w in zip(got, want))
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 unit in the last place of each value of ``x`` (0 at 0)."""
+    x = x.float()
+    _, e = torch.frexp(x)  # |x| in [2^(e-1), 2^e)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+DECODE_CASES = [  # (name, B, Smax, Hkv, G, hd, cache dtype, q dtype, position, window, cap, q scale)
+    *[(f"cell shape at {p}", 8, 1152, 8, 4, 128, torch.bfloat16, torch.bfloat16, p, None, None, 1.0)
+      for p in (0, 1, 1023, 1151, 1200)],
+    ("gemma2 local", 2, 4200, 8, 2, 256, torch.bfloat16, torch.bfloat16, 4150, 4096, 50.0, 8.0),
+    ("dbrx G 6", 4, 600, 8, 6, 128, torch.bfloat16, torch.bfloat16, 517, None, None, 1.0),
+    ("smollm hd 64 G 3", 4, 600, 3, 3, 64, torch.bfloat16, torch.bfloat16, 599, None, None, 1.0),
+    ("hd 64 MHA float32", 3, 700, 4, 1, 64, torch.float32, torch.float32, 650, None, None, 1.0),
+    ("bfloat16 q, float32 cache", 4, 576, 8, 4, 128, torch.float32, torch.bfloat16, 300, None, None, 1.0),
+    ("smoke width", 2, 48, 2, 2, 32, torch.float32, torch.float32, 40, 32, None, 1.0),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_cuda_decode_attention_matches_plain(cuda, case):
+    """The decode attention kernel against the plain float32 body on the
+    same card tensors, one launch count a call.  Tolerance: float32
+    outputs within atol = rtol = 1e-5; bfloat16 outputs within one
+    bfloat16 ulp of the plain output plus the same atol 1e-5.  Both compute
+    the same float32 scores, softmax and PV product from the same values,
+    so only the order of the sums differs (and the plain path's ``-1e30``
+    weights are exactly 0): two float32 results a sum-order error apart
+    round to bfloat16 values at most that error plus one ulp apart, and
+    near zero, where a PV sum cancels, that error is many bfloat16 ulps."""
+    from repro_torch.models import common
+
+    _, B, Smax, Hkv, G, hd, kv_dtype, dtype, position, window, cap, scale = case
+    g = torch.Generator(device=cuda).manual_seed(position + hd)
+    q = (torch.randn((B, 1, Hkv, G, hd), generator=g, device=cuda) * scale).to(dtype)
+    k = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
+    v = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
+    before = kernels.LAUNCHES["decode_attention"]
+    got = common.decode_attention(q, k, v, position, window=window, logit_cap=cap)
+    assert kernels.LAUNCHES["decode_attention"] == before + 1
+    want = common.plain_decode_attention(q, k, v, position, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        excess = (got.float() - want.float()).abs() - bf16_ulp(want)
+        assert float(excess.max()) <= 1e-5
+    if position == 0:  # one visible position: its values, exactly
+        assert torch.equal(got, v[:, :1, :, None, :].expand_as(got).to(dtype))
+
+
+def test_cuda_decode_step_launches_decode_attention_once_a_layer(cuda):
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import decode_step, init_cache, init_model, prefill
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke(get_config("qwen3-8b")), repeats=3)
+    params = tree_map(lambda t: t.to(cuda), init_model(cfg, torch.Generator().manual_seed(0)))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    attn = sum(1 for _ in range(cfg.repeats) for kind in cfg.pattern if "attn" in kind)
+    with torch.no_grad():
+        _, cache = prefill(cfg, params, {"tokens": toks[:, :8]}, init_cache(cfg, 2, 16, torch.float32, cuda))
+        kernels.reset_launches()
+        decode_step(cfg, params, cache, toks[:, 8:], 8)
+    assert attn >= 1 and kernels.reset_launches()["decode_attention"] == attn
+
+
+def test_cuda_decode_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import gqa_decode
+
+    q = torch.zeros((2, 1, 2, 2, 32), device=cuda)
+    k = torch.zeros((2, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError):  # a cache that is not contiguous
+        gqa_decode.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, 3)
+    with pytest.raises(ValueError):  # hd 48
+        gqa_decode.decode_attention(torch.zeros((2, 1, 2, 2, 48), device=cuda), torch.zeros((2, 16, 2, 48), device=cuda),
+                                    torch.zeros((2, 16, 2, 48), device=cuda), 3)
 
 
 def test_cuda_calibration_summaries_bit_equal_to_cpu(cuda):

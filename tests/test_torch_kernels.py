@@ -149,7 +149,8 @@ def test_cpu_tensors_reach_the_plain_versions_and_launch_nothing():
     v = torch.from_numpy(rng.normal(size=500).astype(np.float32))
     edges = torch.sort(v[::50]).values
     assert torch.equal(kernels.cumulative_counts(v, edges), ref.cumulative_counts_ref(v, edges))
-    assert kernels.LAUNCHES == {"tile_sort": 0, "sort_kv": 0, "merge_cut": 0, "bucket_count": 0}
+    assert kernels.LAUNCHES == {"tile_sort": 0, "sort_kv": 0, "merge_cut": 0, "bucket_count": 0,
+                                "decode_attention": 0}
 
 
 def test_wrappers_reject_bad_arguments():
