@@ -862,7 +862,7 @@ def decode_attention_shape(dev) -> dict:
     ms = cuda_ms(lambda: gqa_decode.decode_attention(q, k, v, pos), reps=50)
     plain = cuda_ms(lambda: common.plain_decode_attention(q, k, v, pos))
     b, by = bound_ms(*decode_attention_cost(B, Hkv, G, hd, pos + 1, 2, 2))
-    _, _, chunk, splits = gqa_decode.plan(B, Hkv, Smax, pos, None, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk, splits = gqa_decode.plan(B, Hkv, Smax, None, torch.cuda.get_device_properties(dev).multi_processor_count)
     calls = calls_breakdown(lambda: gqa_decode.decode_attention(q, k, v, pos))
     host = decode_host_us(dev)
     step = decode_step_copies(dev)

@@ -74,13 +74,15 @@ _SIGNATURES = {
     "hk_kv_sort": [_PTR] * 4 + [_INT] * 6 + [_PTR] * 6,
     "hk_merge_cut": [_PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR, _PTR, _PTR],
     "hk_bucket_count": [_PTR, _I64, _PTR] + [_INT] * 3 + [_PTR, _PTR],
-    "hk_decode_attention": [_PTR] * 5 + [_INT] * 11 + [_FLT, _FLT, _PTR],
+    "hk_decode_attention": [_PTR] * 6 + [_INT] * 10 + [_FLT, _FLT, _PTR],
 }
 
 
-def count(name: str) -> None:
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` calls of kernel ``name``'s wrapper (a replayed CUDA graph
+    adds those its capture recorded)."""
     with _LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> dict[str, int]:

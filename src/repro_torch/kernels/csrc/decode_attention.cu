@@ -13,7 +13,9 @@
 // only the order of the sums differs.  Positions outside the visible range
 // [lo, hi] (hi = min(position, Smax - 1), lo = max(0, position - window + 1))
 // are skipped: the plain path gives them a -1e30 logit, whose weight is
-// exactly 0 in float32.
+// exactly 0 in float32.  Each block reads the position from device memory,
+// so one launch, its grid and its arguments serve every position: a CUDA
+// graph of the decode step replays it as the position advances on the card.
 //
 // Bound: device-memory bytes.  A K or V element of the visible range is
 // read once (2 or 4 bytes) and takes 2·G float32 operations (G query heads
@@ -39,12 +41,15 @@
 //     that the query and accumulator registers (2·GM·kE) stay at most 64
 //     for G up to 4 (128 above) and a row group reads 64 bytes or more at
 //     once: fewer lanes a row for small G mean fewer shuffles a row;
-//   - the wrapper (kernels/gqa_decode.py, `plan`) cuts the visible range
-//     into `splits` chunks so that the grid runs several waves over the
-//     SMs; with more than one split each block writes its (max, sum,
-//     accumulator) partials to float32 scratch and a second small kernel
-//     merges them into the output; with one split the block writes the
-//     output itself.
+//   - the wrapper (kernels/gqa_decode.py, `plan`) cuts the widest visible
+//     range, min(Smax, window) positions, into `splits` chunks of `chunk`
+//     so that the grid runs several waves over the SMs; split s covers
+//     [lo + s·chunk, min(hi, lo + (s + 1)·chunk - 1)] of the position's own
+//     range, and one that starts past hi reads nothing; with more than one
+//     split each block writes its (max, sum, accumulator) partials to
+//     float32 scratch (an empty split: max -inf, sum 0, accumulator 0) and a
+//     second small kernel merges them into the output, weighing an empty one
+//     0; with one split the block writes the output itself.
 //
 // Templates: the KV dtype (bfloat16 or float32), hd (32, 64, 128, 256) and
 // GM, the number of query heads a KV head rounded up to 1, 2, 4 or 8 (the
@@ -121,7 +126,8 @@ struct Args {
   const void* v;
   void* out;       // like q
   float* part;     // (B, Hkv, splits, G, hd + 2): accumulator, max, sum
-  int q_bf16, smax, hkv, g, lo, hi, chunk, splits;
+  const int* pos;  // (1,): the position of the token being decoded
+  int q_bf16, smax, hkv, g, window, chunk, splits;  // window 0: none
   float scale, cap;  // cap 0: no softcap
 };
 
@@ -136,8 +142,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = lane / kTpr, sub = lane % kTpr;
-  const int start = a.lo + split * a.chunk;
-  const int end = min(a.hi, start + a.chunk - 1);
+  const int position = *a.pos;
+  const int hi = min(position, a.smax - 1);
+  const int lo = a.window > 0 ? max(0, position - a.window + 1) : 0;
+  const int start = lo + split * a.chunk;
+  const int end = min(hi, start + a.chunk - 1);  // below start: an empty split
   const size_t head = static_cast<size_t>(b) * a.hkv + kvh;  // (row, KV head)
 
   // this lane's kE dimensions: load c covers [(c·kTpr + sub)·kVec, +kVec)
@@ -233,10 +242,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float lother = __shfl_xor_sync(0xffffffffu, l[g], off);
       const float mx = fmaxf(m[g], mo);
       const float fa = rescale(m[g], mx), fb = rescale(mo, mx);
-      l[g] = l[g] * fa + lo * fb;
+      l[g] = l[g] * fa + lother * fb;
       m[g] = mx;
 #pragma unroll
       for (int e = 0; e < kE; ++e) {
@@ -261,7 +270,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   }
   __syncthreads();
 
-  // merge the warps; every split holds at least one visible row, so mx is finite
+  // merge the warps; mx is -inf only in a split that holds no visible row
+  // (past hi), which writes an empty partial; split 0 holds lo, so the
+  // output is finite wherever some position is visible (NaN where none is)
   for (int i = threadIdx.x; i < a.g * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     float mx = -INFINITY;
@@ -298,7 +309,7 @@ __global__ void __launch_bounds__(kCombineThreads) combine_kernel(const Args a, 
     for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, p[s * step + hd]);
     float sum = 0.f, out = 0.f;
     for (int s = 0; s < a.splits; ++s) {
-      const float f = expf(p[s * step + hd] - mx);
+      const float f = rescale(p[s * step + hd], mx);  // 0 for an empty split
       sum += p[s * step + hd + 1] * f;
       out += p[s * step + d] * f;
     }
@@ -341,16 +352,19 @@ const char* hk_error_string(int err) {
 
 // q, out (B, 1, Hkv, G, hd) contiguous, bfloat16 (q_bf16) or float32;
 // k, v (B, smax, Hkv, hd) contiguous, 16-byte aligned, bfloat16 (kv_bf16)
-// or float32; hd in {32, 64, 128, 256}, 1 <= g <= 8; the visible range
-// [lo, hi] cut into `splits` chunks of `chunk` positions, each holding at
-// least one (kernels/gqa_decode.py, `plan`); part (B, Hkv, splits, G,
-// hd + 2) float32, unused when splits is 1; cap 0 for no softcap.
-int hk_decode_attention(const void* q, const void* k, const void* v, void* out, float* part, int q_bf16,
-                        int kv_bf16, int batch, int smax, int hkv, int g, int hd, int lo, int hi, int chunk,
-                        int splits, float scale, float cap, void* stream) {
-  if (g < 1 || g > 8 || splits < 1 || batch < 1 || lo > hi) return static_cast<int>(cudaErrorInvalidValue);
+// or float32; hd in {32, 64, 128, 256}, 1 <= g <= 8; pos (1,) int32 on the
+// device, the token's position, read by every block; window 0 for none;
+// `splits` chunks of `chunk` positions that cover the widest visible range
+// (kernels/gqa_decode.py, `plan`); part (B, Hkv, splits, G, hd + 2)
+// float32, unused when splits is 1; cap 0 for no softcap.
+int hk_decode_attention(const void* q, const void* k, const void* v, void* out, float* part, const int* pos,
+                        int q_bf16, int kv_bf16, int batch, int smax, int hkv, int g, int hd, int window,
+                        int chunk, int splits, float scale, float cap, void* stream) {
+  if (g < 1 || g > 8 || splits < 1 || batch < 1 || chunk < 1 || window < 0 || pos == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{q, k, v, out, part, q_bf16, smax, hkv, g, lo, hi, chunk, splits, scale, cap};
+  const Args a{q, k, v, out, part, pos, q_bf16, smax, hkv, g, window, chunk, splits, scale, cap};
   cudaError_t err = kv_bf16 ? launch_hd<__nv_bfloat16>(a, batch, hd, st) : launch_hd<float>(a, batch, hd, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   combine_kernel<<<batch * hkv, kCombineThreads, 0, st>>>(a, hd);

@@ -7,8 +7,11 @@ Replaces no TPU kernel: the reference's decode attention is plain ``jnp``
 cache to float32 and copies it before its products; the kernel reads each
 K/V element of the visible range once, where it lies, and computes the
 same float32 scores, softcap, softmax and PV product (the source note says
-why the bound is device-memory bytes).  :func:`plan` cuts the visible range
-into the launch's splits.
+why the bound is device-memory bytes).  The kernel reads the token's
+position from device memory, and :func:`plan` fixes the launch's splits
+from the shapes alone, so one launch serves every position and a CUDA graph
+of the decode step replays it unchanged while the position advances on the
+card.
 
 :func:`decode_attention` takes CUDA tensors only and raises on anything the
 kernel does not take: ``models.common.decode_attention`` sends a CUDA
@@ -43,18 +46,19 @@ def visible(position: int, smax: int, window: int | None) -> tuple[int, int]:
     return lo, hi
 
 
-def plan(batch: int, hkv: int, smax: int, position: int, window: int | None, sms: int) -> tuple[int, int, int, int]:
-    """``(lo, hi, chunk, splits)`` of one launch: the visible range cut into
-    ``splits`` chunks of ``chunk`` positions (a multiple of
-    :data:`CHUNK_ALIGN`; the last may be shorter, none is empty), enough
-    for about :data:`BLOCKS_PER_SM` blocks an SM over ``batch · hkv``
-    (row, KV head) pairs.  Split ``s`` covers ``[lo + s·chunk,
-    min(hi, lo + (s + 1)·chunk - 1)]``, as the kernel's blocks compute it."""
-    lo, hi = visible(position, smax, window)
-    n = hi - lo + 1
+def plan(batch: int, hkv: int, smax: int, window: int | None, sms: int) -> tuple[int, int]:
+    """``(chunk, splits)`` of every launch at these shapes: the widest
+    visible range, ``min(Smax, window)`` positions, cut into ``splits``
+    chunks of ``chunk`` positions (a multiple of :data:`CHUNK_ALIGN`),
+    enough for about :data:`BLOCKS_PER_SM` blocks an SM over ``batch ·
+    hkv`` (row, KV head) pairs.  At a position whose :func:`visible` range
+    is ``(lo, hi)``, split ``s`` covers ``[lo + s·chunk, min(hi, lo + (s +
+    1)·chunk - 1)]``, as the kernel's blocks compute it: empty where it
+    starts past ``hi``."""
+    n = smax if window is None else min(smax, window)
     want = max(1, -(-BLOCKS_PER_SM * sms // (batch * hkv)))
     chunk = CHUNK_ALIGN * max(1, -(-n // (want * CHUNK_ALIGN)))
-    return lo, hi, chunk, -(-n // chunk)
+    return chunk, -(-n // chunk)
 
 
 def _sms(index: int) -> int:
@@ -68,7 +72,7 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, Hkv, G, hd)
     k_cache: torch.Tensor,  # (B, Smax, Hkv, hd)
     v_cache: torch.Tensor,
-    position: int,
+    position: int | torch.Tensor,
     *,
     window: int | None = None,
     logit_cap: float | None = None,
@@ -76,7 +80,11 @@ def decode_attention(
     """``plain_decode_attention`` on the card: ``(B, 1, Hkv, G, hd)`` in
     q's dtype.  q bfloat16 or float32; the caches contiguous, 16-byte
     aligned, both bfloat16 or both float32; hd in :data:`HEAD_DIMS`, G at
-    most :data:`MAX_GROUP`.  One wrapper call is one count of
+    most :data:`MAX_GROUP`.  ``position``: an int32 tensor of one element
+    (0-d or ``(1,)``) on q's device, which the kernel reads there (where no
+    position is visible its output is NaN: the caller checks its positions
+    on the host), or a host ``int``, checked by :func:`visible` and filled
+    into one on the card.  One wrapper call is one count of
     ``LAUNCHES["decode_attention"]`` (one launch, two with splits)."""
     if q.dim() != 5 or q.shape[1] != 1 or k_cache.dim() != 4:
         raise ValueError(f"q must be (B, 1, Hkv, G, hd) and the caches (B, Smax, Hkv, hd), "
@@ -96,15 +104,24 @@ def decode_attention(
         raise ValueError(f"kernel takes CUDA tensors on one device, got {q.device}, {k_cache.device}, {v_cache.device}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or (k_cache.data_ptr() | v_cache.data_ptr()) % 16:
         raise ValueError("kernel takes contiguous, 16-byte aligned caches")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    if isinstance(position, torch.Tensor):
+        if position.dtype != torch.int32 or position.numel() != 1 or position.device != q.device:
+            raise ValueError(f"position must be an int32 tensor of one element on {q.device}, "
+                             f"got {position.dtype} {tuple(position.shape)} on {position.device}")
+    else:
+        visible(int(position), Smax, window)  # raises where no position is visible
+        position = torch.full((), int(position), dtype=torch.int32, device=q.device)
     q = q.contiguous()
-    lo, hi, chunk, splits = plan(B, Hkv, Smax, int(position), window, _sms(q.get_device()))
+    chunk, splits = plan(B, Hkv, Smax, window, _sms(q.get_device()))
     out = torch.empty_like(q)
     part = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     lib = _lib.library("decode_attention")
     err = lib.hk_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
-        B, Smax, Hkv, G, hd, lo, hi, chunk, splits, hd**-0.5,
+        None if part is None else part.data_ptr(), position.data_ptr(), _DTYPES[q.dtype],
+        _DTYPES[k_cache.dtype], B, Smax, Hkv, G, hd, window or 0, chunk, splits, hd**-0.5,
         0.0 if logit_cap is None else float(logit_cap), _lib.stream(q),
     )
     _lib.check(lib, err, "decode attention")

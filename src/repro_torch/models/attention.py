@@ -9,9 +9,11 @@ a KV cache.  Weights are head-major, ``(d, H, hd)``, as in the reference.
 The KV cache is written in place: at ``[0, S)`` by :func:`prefill_attention`
 and at ``position`` by :func:`decode_attention_step` (the reference's
 ``dynamic_update_slice`` under ``donate_argnums``, start clamped to
-``Smax - 1`` as XLA clamps it).  Both return the cache, as the reference
-does.  Cross-attention's keys and values come from the encoder states,
-projected once a request (:func:`encode_cross_kv`) or at each call.
+``Smax - 1`` as XLA clamps it), whose position is a tensor on the cache's
+device, so that a decode step holds no host value of it.  Both return the
+cache, as the reference does.  Cross-attention's keys and values come from
+the encoder states, projected once a request (:func:`encode_cross_kv`) or
+at each call.
 """
 from __future__ import annotations
 
@@ -142,16 +144,15 @@ def prefill_attention(cfg, p, x, positions, cache, *, kind: str = "global"):
     return y, cache
 
 
-def decode_attention_step(cfg, p, x, position: int, cache: dict, *, kind: str = "global"):
-    """One-token decode: project, write the cache at ``position``, attend.
-    x: ``(B, 1, d)``."""
+def decode_attention_step(cfg, p, x, position: torch.Tensor, cache: dict, *, kind: str = "global"):
+    """One-token decode: project, write the cache at ``position`` (an int32
+    tensor of one element on x's device), attend.  x: ``(B, 1, d)``."""
     B = x.shape[0]
     Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    pos = torch.full((1,), position, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos, cfg.use_rope)
-    slot = min(max(position, 0), cache["k"].shape[1] - 1)  # XLA clamps the start
-    cache["k"][:, slot:slot + 1] = k
-    cache["v"][:, slot:slot + 1] = v
+    q, k, v = _project_qkv(cfg, p, x, position, cfg.use_rope)
+    slot = position.clamp(0, cache["k"].shape[1] - 1).long()  # XLA clamps the start
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
     out = decode_attention(
         q.reshape(B, 1, Hkv, G, cfg.head_dim), cache["k"], cache["v"], position,
         window=_window(cfg, kind), logit_cap=cfg.attn_softcap,

@@ -181,7 +181,7 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, Hkv, G, hd)
     k_cache: torch.Tensor,  # (B, Smax, Hkv, hd)
     v_cache: torch.Tensor,
-    position: int,  # index of the token being produced
+    position: int | torch.Tensor,  # index of the token being produced: an int or a one-element int32 tensor
     *,
     window: int | None = None,
     logit_cap: float | None = None,
@@ -190,8 +190,9 @@ def decode_attention(
     ``kv_pos <= position`` (and the window): :func:`plain_decode_attention`
     on the CPU (and on ``meta`` tensors), the hand-written kernel
     (``kernels/csrc/decode_attention.cu``) on the card, which reads the
-    cache once, in place, with the same float32 arithmetic; only the order
-    of its sums differs.  The kernel raises on what it does not take."""
+    cache once, in place, with the same float32 arithmetic, and the
+    position where it lies; only the order of its sums differs.  The kernel
+    raises on what it does not take."""
     if q.is_cuda:
         return gqa_decode.decode_attention(q, k_cache, v_cache, position, window=window, logit_cap=logit_cap)
     return plain_decode_attention(q, k_cache, v_cache, position, window=window, logit_cap=logit_cap)
@@ -201,14 +202,14 @@ def plain_decode_attention(
     q: torch.Tensor,  # (B, 1, Hkv, G, hd)
     k_cache: torch.Tensor,  # (B, Smax, Hkv, hd)
     v_cache: torch.Tensor,
-    position: int,
+    position: int | torch.Tensor,
     *,
     window: int | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
     """One query token against the whole ``Smax`` cache, keys masked to
     ``kv_pos <= position`` (and the window), in float32 over a float32 copy
-    of the cache."""
+    of the cache; ``position`` an int or a one-element int32 tensor."""
     Smax = k_cache.shape[1]
     hd = q.shape[-1]
     scale = hd**-0.5

@@ -558,7 +558,7 @@ def prefill(cfg, params, batch: dict, cache: tuple):
     return _logits(cfg, params, x), cache
 
 
-def _layer_decode(cfg, kind, p, cache, x, pos: int):
+def _layer_decode(cfg, kind, p, cache, x, pos: torch.Tensor):
     if kind == "rwkv":
         return _rwkv_layer(cfg, p, cache, x, decode=True)
     parts = _parse(kind)
@@ -575,15 +575,21 @@ def _layer_decode(cfg, kind, p, cache, x, pos: int):
     return _ffn(cfg, kind, p, x)[0]
 
 
-def decode_step(cfg, params, cache: tuple, token, pos: int):
-    """token: ``(B, 1)`` ids; pos: the host index of that token →
-    ``(logits (B, 1, V), cache)``, the caches written in place (KV at
-    ``pos``)."""
-    pos = int(pos)
+def decode_step(cfg, params, cache: tuple, token, pos):
+    """token: ``(B, 1)`` ids; pos: the index of that token, an int32 tensor
+    of one element (0-d or ``(1,)``) on the model's device (a host ``int``
+    is filled into a 0-d one here, once), which every layer reads where it
+    lies → ``(logits (B, 1, V), cache)``, the caches written in place (KV
+    at ``pos``).  No step reads a host value of ``pos``, so a CUDA graph of
+    one step serves every position."""
     x = _embed_tokens(cfg, params, token)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int32, device=x.device)
     if not cfg.use_rope:
         i = torch.arange(cfg.d_model // 2, dtype=torch.float32, device=x.device)
-        angle = float(pos) / torch.pow(10000.0, 2 * i / cfg.d_model)
+        # pos times the reciprocal: the bits a host pos gave, since torch divides a Python number by a
+        # tensor as the tensor's reciprocal times the number
+        angle = pos.float() * torch.pow(10000.0, 2 * i / cfg.d_model).reciprocal()
         x = x + torch.cat([torch.sin(angle), torch.cos(angle)]).to(x.dtype)
     for kind, p, c in _layers(cfg, params, cache):
         x = _layer_decode(cfg, kind, p, c, x, pos)

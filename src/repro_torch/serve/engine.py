@@ -15,6 +15,16 @@ encoder's too), made once: the bits the reference gets by casting at
 every use.  An encoder-decoder config generates from zero ``frames``, as
 the reference does.
 
+It also holds the caches of the batch shape it last served, zeroed at the
+start of each turn, and a static token and position beside them: the
+position is set once after the prefill, and each decode step advances it
+on the device.  On the card the first decode step of a shape runs eagerly
+(the warm-up), the second is captured into a CUDA graph, and every later
+step of that shape replays it: one launch a token in place of the step's
+few thousand.  A new shape drops the old caches and graph before it builds
+its own.  Sampling stays outside the graph; the one host sync a token is
+the sampled ids' copy to the host.
+
 Copied from the reference on purpose (ROADMAP Queue 3): a ragged batch is
 right-padded with token 0, every row samples its first new token at
 position L−1 and decodes from position L, so a short prompt continues
@@ -31,8 +41,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.histogram import Histogram, build_exact, merge_list, quantile
 from repro_torch.device import as_tensor, resolve_device
-from repro_torch.models.model import _compute_dtype, decode_step, forward_hidden, init_cache, prefill
-from repro_torch.tree import tree_map
+from repro_torch.kernels import _lib
+from repro_torch.kernels.gqa_decode import visible
+from repro_torch.models.model import _compute_dtype, _mixer, decode_step, forward_hidden, init_cache, prefill
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["Engine", "ServeConfig"]
 
@@ -78,6 +90,13 @@ class Engine:
             for key in ("blocks", "encoder"):  # the norms in them stay float32
                 if key in self.params:
                     self._run[key] = _compute_copy(self.params[key], _compute_dtype(cfg))
+        # the decode state of the shape last served (``_hold``)
+        self._shape = self._cache = self._tok = self._pos = None
+        self._graph = self._logits = None
+        self._launches: dict[str, int] = {}  # kernel wrapper calls a replay stands for
+        self._warm = False  # a step of this shape has run eagerly
+        local = any(_mixer(kind) == "local" for kind in cfg.pattern)
+        self._window = cfg.sliding_window if local else None  # for the host check of a decode position
 
     def _pad_batch(self, prompts: Sequence[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
         B = len(prompts)
@@ -98,12 +117,12 @@ class Engine:
         cfg, scfg = self.cfg, self.scfg
         toks, _ = self._pad_batch(prompts)
         B, L = toks.shape
-        dtype = torch.float32 if scfg.cache_dtype == "float32" else torch.bfloat16
-        cache = init_cache(cfg, B, scfg.max_seq, dtype=dtype, device=self.device)
+        cache = self._hold(B)
         batch = {"tokens": as_tensor(toks, self.device)}
         if cfg.is_encoder_decoder:
             batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=torch.float32, device=self.device)
-        logits, cache = prefill(cfg, self._run, batch, cache)
+        logits, _ = prefill(cfg, self._run, batch, cache)
+        self._pos.fill_(L)
         if generator is None and scfg.temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = [list(p) for p in prompts]
@@ -117,9 +136,70 @@ class Engine:
                     done[i] |= int(t[i]) == scfg.eos_id
             if done.all():
                 break
-            logits, cache = decode_step(cfg, self._run, cache, tok[:, None], L + step)
+            if self.device.type == "cuda":  # the kernel reads the position on the card: check it here
+                visible(L + step, scfg.max_seq, self._window)
+            logits = self._decode(tok)
             tok = self._sample(logits[:, -1], generator)
         return [np.asarray(o, np.int32) for o in out]
+
+    def _hold(self, B: int) -> tuple:
+        """The caches of a ``B``-row turn, zeroed (one memset a buffer): those
+        of the last turn where the shape is the same, else new ones, built
+        after the old caches and graph are dropped."""
+        dtype = torch.float32 if self.scfg.cache_dtype == "float32" else torch.bfloat16
+        shape = (B, self.scfg.max_seq, dtype)
+        if shape == self._shape:
+            for t in leaves(self._cache):
+                t.zero_()
+            return self._cache
+        self._shape = self._cache = self._tok = self._pos = self._graph = self._logits = None
+        self._warm = False
+        self._cache = init_cache(self.cfg, B, self.scfg.max_seq, dtype=dtype, device=self.device)
+        self._tok = torch.zeros((B, 1), dtype=torch.int32, device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._shape = shape
+        return self._cache
+
+    def _step(self) -> torch.Tensor:
+        """One decode step of the static token at the static position, which
+        it then advances on the device → the logits ``(B, 1, V)``."""
+        logits, _ = decode_step(self.cfg, self._run, self._cache, self._tok, self._pos)
+        self._pos += 1
+        return logits
+
+    def _decode(self, tok: torch.Tensor) -> torch.Tensor:
+        """The logits after the sampled ids ``tok`` ``(B,)``: on the card a
+        replay of the captured step (the shape's first step runs eagerly, its
+        second captures), elsewhere the step itself."""
+        self._tok.copy_(tok[:, None])
+        if self.device.type != "cuda":
+            return self._step()
+        if self._graph is None:
+            if not self._warm:
+                self._warm = True
+                return self._step()
+            self._capture()
+        self._graph.replay()
+        for name, n in self._launches.items():
+            _lib.count(name, n)
+        return self._logits
+
+    def _capture(self) -> None:
+        """Capture one :meth:`_step` into a CUDA graph whose pool holds its
+        intermediates and its logits; the kernel wrapper calls the capture
+        counted are taken back (it ran nothing) and added at each replay."""
+        before = dict(_lib.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self._logits = self._step()
+        except RuntimeError as exc:
+            raise RuntimeError(f"{self.cfg.name}: a decode step could not be captured in a CUDA graph; a step "
+                               "must read no device value on the host and keep its shapes from step to step") from exc
+        self._launches = {name: n - before[name] for name, n in _lib.LAUNCHES.items() if n != before[name]}
+        for name, n in self._launches.items():
+            _lib.count(name, -n)
+        self._graph = graph
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         if self.scfg.temperature <= 0.0:

@@ -676,6 +676,27 @@ DECODE_CASES = [  # (name, B, Smax, Hkv, G, hd, cache dtype, q dtype, position, 
 ]
 
 
+def decode_inputs(cuda, case):
+    """``(q, k, v)`` of one ``DECODE_CASES`` entry, drawn on the card."""
+    _, B, Smax, Hkv, G, hd, kv_dtype, dtype, position, window, cap, scale = case
+    g = torch.Generator(device=cuda).manual_seed(position + hd)
+    q = (torch.randn((B, 1, Hkv, G, hd), generator=g, device=cuda) * scale).to(dtype)
+    k = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
+    v = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
+    return q, k, v
+
+
+def assert_decode_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """The kernel's tolerance against the plain body (the docstring of
+    ``test_cuda_decode_attention_matches_plain``)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        excess = (got.float() - want.float()).abs() - bf16_ulp(want)
+        assert float(excess.max()) <= 1e-5
+
+
 @pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
 def test_cuda_decode_attention_matches_plain(cuda, case):
     """The decode attention kernel against the plain float32 body on the
@@ -689,24 +710,53 @@ def test_cuda_decode_attention_matches_plain(cuda, case):
     near zero, where a PV sum cancels, that error is many bfloat16 ulps."""
     from repro_torch.models import common
 
-    _, B, Smax, Hkv, G, hd, kv_dtype, dtype, position, window, cap, scale = case
-    g = torch.Generator(device=cuda).manual_seed(position + hd)
-    q = (torch.randn((B, 1, Hkv, G, hd), generator=g, device=cuda) * scale).to(dtype)
-    k = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
-    v = torch.randn((B, Smax, Hkv, hd), generator=g, device=cuda).to(kv_dtype)
+    dtype, position, window, cap = case[7:11]
+    q, k, v = decode_inputs(cuda, case)
     before = kernels.LAUNCHES["decode_attention"]
     got = common.decode_attention(q, k, v, position, window=window, logit_cap=cap)
     assert kernels.LAUNCHES["decode_attention"] == before + 1
     want = common.plain_decode_attention(q, k, v, position, window=window, logit_cap=cap)
     torch.cuda.synchronize()
-    assert got.dtype == want.dtype == dtype and got.shape == want.shape
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    else:
-        excess = (got.float() - want.float()).abs() - bf16_ulp(want)
-        assert float(excess.max()) <= 1e-5
+    assert got.dtype == dtype
+    assert_decode_close(got, want)
     if position == 0:  # one visible position: its values, exactly
         assert torch.equal(got, v[:, :1, :, None, :].expand_as(got).to(dtype))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_cuda_decode_attention_reads_a_device_position(cuda, case):
+    """The kernel with its position as an int32 tensor on the card: the
+    output of the host ``int`` bit for bit (one split layout a shape), and
+    so the plain body's within the kernel's tolerance."""
+    from repro_torch.models import common
+
+    position, window, cap = case[8:11]
+    q, k, v = decode_inputs(cuda, case)
+    pos = torch.tensor([position], dtype=torch.int32, device=cuda)
+    got = common.decode_attention(q, k, v, pos, window=window, logit_cap=cap)
+    assert torch.equal(got, common.decode_attention(q, k, v, position, window=window, logit_cap=cap))
+    assert_decode_close(got, common.plain_decode_attention(q, k, v, pos, window=window, logit_cap=cap))
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_cuda_decode_attention_graph_serves_every_position(cuda, window):
+    """One kernel call captured in a CUDA graph, replayed as the position
+    it reads advances on the card: the plain body's output at each
+    position, the first, split boundaries, the last slot and past it."""
+    from repro_torch.kernels import gqa_decode
+    from repro_torch.models import common
+
+    case = ("graph", 8, 1152, 8, 4, 128, torch.bfloat16, torch.bfloat16, 5, window, None, 1.0)
+    q, k, v = decode_inputs(cuda, case)
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)  # 0-d, as the engine holds it
+    gqa_decode.decode_attention(q, k, v, pos, window=window)  # loads the library outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gqa_decode.decode_attention(q, k, v, pos, window=window)
+    for position in (0, 1, 31, 383, 384, 767, 1000, 1151, 1300):
+        pos.fill_(position)
+        graph.replay()
+        assert_decode_close(out.clone(), common.plain_decode_attention(q, k, v, position, window=window))
 
 
 def test_cuda_decode_step_launches_decode_attention_once_a_layer(cuda):
@@ -725,6 +775,103 @@ def test_cuda_decode_step_launches_decode_attention_once_a_layer(cuda):
     assert attn >= 1 and kernels.reset_launches()["decode_attention"] == attn
 
 
+SERVED = ["qwen3-8b", "gemma2-9b", "dbrx-132b", "jamba-v0.1-52b", "rwkv6-7b", "whisper-medium", "pixtral-12b"]
+
+
+def served_engine(cuda, arch: str, repeats: int | None = None, **scfg):
+    """An ``Engine`` on the card over the smoke config's parameters
+    (float32; ``repeats`` periods of its pattern where given); ``eos_id``
+    -1, so every row generates every token."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_model
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    cfg = smoke(get_config(arch))
+    if repeats is not None:
+        cfg = dataclasses.replace(cfg, repeats=repeats)
+    params = tree_map(lambda t: t.to(cuda), init_model(cfg, torch.Generator().manual_seed(0)))
+    return Engine(cfg, params, ServeConfig(eos_id=-1, **scfg), device=cuda)
+
+
+def eager_turn(eng, prompts) -> list[np.ndarray]:
+    """What ``eng.generate`` serves, greedy, without a graph: the prefill,
+    then ``decode_step`` called eagerly at host positions on fresh caches."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg, scfg = eng.cfg, eng.scfg
+    toks, _ = eng._pad_batch(prompts)
+    B, L = toks.shape
+    batch = {"tokens": torch.as_tensor(toks, device=eng.device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model), device=eng.device)
+    out = [list(p) for p in prompts]
+    with torch.no_grad():
+        logits, cache = prefill(cfg, eng._run, batch, init_cache(cfg, B, scfg.max_seq, torch.float32, eng.device))
+        for step in range(scfg.max_new_tokens):
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            for o, t in zip(out, tok.tolist()):
+                o.append(t)
+            logits, cache = decode_step(cfg, eng._run, cache, tok[:, None], L + step)
+    return [np.asarray(o, np.int32) for o in out]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_cuda_graph_replay_serves_the_eager_tokens(cuda, arch):
+    """Every family the engine serves goes through one capture: the first
+    decode step runs eagerly, the second is captured, the rest replay; the
+    tokens are the eager path's, token for token."""
+    eng = served_engine(cuda, arch, max_seq=48, max_new_tokens=6)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, eng.cfg.vocab_size, size=n).astype(np.int32) for n in (7, 12, 9)]
+    got = eng.generate(prompts)
+    assert eng._graph is not None
+    for g, w in zip(got, eager_turn(eng, prompts)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_cuda_engine_captures_once_a_shape_and_frees_the_old_graph(cuda, monkeypatch):
+    """A second turn of the same shape replays the graph it has, on the
+    same caches; a turn of another batch size drops both and captures
+    anew.  Each turn serves the eager path's tokens."""
+    import gc
+    import weakref
+
+    from repro_torch.serve import Engine
+
+    eng = served_engine(cuda, "qwen3-8b", max_seq=48, max_new_tokens=5)
+    captured = []
+    capture = Engine._capture
+    monkeypatch.setattr(Engine, "_capture", lambda self: captured.append(self._tok.shape[0]) or capture(self))
+    rng = np.random.default_rng(6)
+    turns = [[rng.integers(2, eng.cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+             for lens in ((9, 9, 9), (11, 4, 10), (8, 8))]
+    got = [eng.generate(turns[0])]
+    graph, cache = weakref.ref(eng._graph), eng._cache
+    got.append(eng.generate(turns[1]))
+    assert captured == [3] and eng._graph is graph() and eng._cache is cache
+    got.append(eng.generate(turns[2]))
+    gc.collect()
+    assert captured == [3, 2] and graph() is None and eng._cache is not cache
+    for prompts, g in zip(turns, got):
+        for a, b in zip(g, eager_turn(eng, prompts)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_replayed_steps_count_one_decode_attention_a_layer(cuda):
+    """A replayed step adds the wrapper calls its capture recorded, so
+    ``LAUNCHES`` counts one decode attention a layer a step, whether the
+    step ran eagerly, was captured and replayed, or only replayed."""
+    eng = served_engine(cuda, "qwen3-8b", repeats=3, max_seq=16, max_new_tokens=5)
+    attn = sum(1 for _ in range(eng.cfg.repeats) for kind in eng.cfg.pattern if "attn" in kind)
+    prompts = [np.arange(2, 10, dtype=np.int32), np.arange(20, 28, dtype=np.int32)]
+    kernels.reset_launches()
+    eng.generate(prompts)  # eager, captured and replayed, then replays
+    assert attn >= 1 and kernels.reset_launches()["decode_attention"] == 5 * attn
+    eng.generate(prompts)  # replays only
+    assert kernels.reset_launches()["decode_attention"] == 5 * attn
+
+
 def test_cuda_decode_attention_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels import gqa_decode
 
@@ -735,6 +882,10 @@ def test_cuda_decode_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # hd 48
         gqa_decode.decode_attention(torch.zeros((2, 1, 2, 2, 48), device=cuda), torch.zeros((2, 16, 2, 48), device=cuda),
                                     torch.zeros((2, 16, 2, 48), device=cuda), 3)
+    with pytest.raises(ValueError):  # a position that is not one int32 on the card
+        gqa_decode.decode_attention(q, k, k, torch.tensor([3], device=cuda))
+    with pytest.raises(ValueError):  # a host position with nothing visible
+        gqa_decode.decode_attention(q, k, k, 40, window=8)
 
 
 def test_cuda_calibration_summaries_bit_equal_to_cpu(cuda):

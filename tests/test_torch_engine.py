@@ -36,6 +36,7 @@ import repro_torch.launch.serve as P_launch
 import repro_torch.models as PM
 import repro_torch.serve as PS
 from repro_torch.convert import params_from_reference
+from repro_torch.tree import leaves
 
 CPU = torch.device("cpu")
 MARGIN = 1e-4
@@ -107,6 +108,30 @@ def test_engine_generate_ssm_arch():
     outs = port.generate(prompt)
     assert len(outs[0]) >= 7
     np.testing.assert_array_equal(outs[0], ref.generate(prompt)[0])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-v0.1-52b", "rwkv6-7b", "whisper-medium"])
+def test_back_to_back_turns_on_one_held_cache_match_fresh_engines_and_the_reference(arch):
+    """Two turns of one shape (3 rows, ``max_seq`` 48; prompt lengths 11
+    then 12) run on the caches the engine holds, zeroed between them, and
+    the position set anew: each turn's tokens are a fresh engine's and the
+    reference's.  A turn of another shape builds new caches."""
+    ref, port = engines(arch, max_seq=48, max_new_tokens=6)
+    turns = [prompts_of(ref.cfg, (7, 11, 9), seed=1), prompts_of(ref.cfg, (12, 4, 10), seed=2)]
+    got = [port.generate(turns[0])]
+    held = port._cache
+    got.append(port.generate(turns[1]))
+    assert port._cache is held
+    for prompts, g in zip(turns, got):
+        fresh = PS.Engine(port.cfg, port.params, port.scfg, device=CPU).generate(prompts)
+        want = ref.generate(prompts)
+        upto = forced_agreement(port, prompts, want)
+        for a, b, w, p in zip(g, fresh, want, prompts):
+            np.testing.assert_array_equal(a, b)
+            n = len(w) if upto is None else len(p) + upto
+            assert len(a) == len(w) and np.array_equal(a[:n], w[:n])
+    port.generate(turns[0][:2])
+    assert port._cache is not held and all(t.shape[1] == 2 for t in leaves(port._cache))
 
 
 def test_greedy_generate_is_deterministic():

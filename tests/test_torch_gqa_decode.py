@@ -2,8 +2,9 @@
 on the CPU (the kernel itself runs only on the card:
 ``tests/test_torch_cuda.py``).
 
-The planner (``kernels/gqa_decode.py``) must hand the kernel exactly the
-cache positions the plain path leaves unmasked, each to one split; every
+The planner (``kernels/gqa_decode.py``) fixes one split layout a shape,
+which must hand the kernel exactly the cache positions the plain path
+leaves unmasked, each to one split, at every position; every
 template instance's lane layout, evaluated from the source's own
 expressions, must read whole rows and keep its registers in bounds.  On the CPU
 ``models.common.decode_attention`` is the plain body, bit for bit, and
@@ -32,6 +33,7 @@ def test_kernel_is_declared_with_its_source_and_signature():
     assert _lib.KERNELS["decode_attention"] == "decode_attention.cu"
     params = re.search(r"int hk_decode_attention\(([^)]*)\)", source()).group(1).split(",")
     assert len(params) == len(_lib._SIGNATURES["hk_decode_attention"]) == 19
+    assert params[5].split() == ["const", "int*", "pos"]  # the position, read on the device
     kinds = ["ptr" if "*" in p else p.split()[0] for p in params]
     want = {_lib._PTR: "ptr", _lib._INT: "int", _lib._FLT: "float"}
     assert kinds == [want[t] for t in _lib._SIGNATURES["hk_decode_attention"]]
@@ -76,13 +78,47 @@ def visible_by_mask(position, smax, window):
     (2, 2, 48, 40, 32),  # the smoke width
 ])
 def test_plan_covers_the_visible_range_exactly_once(batch, hkv, smax, position, window):
-    lo, hi, chunk, splits = gqa_decode.plan(batch, hkv, smax, position, window, sms=132)
+    chunk, splits = gqa_decode.plan(batch, hkv, smax, window, sms=132)
     assert chunk % gqa_decode.CHUNK_ALIGN == 0 and splits >= 1
-    # each split's range as the kernel's blocks compute it
-    parts = [(lo + s * chunk, min(hi, lo + s * chunk + chunk - 1)) for s in range(splits)]
-    assert all(a <= b for a, b in parts), parts  # no split is empty
-    covered = np.concatenate([np.arange(a, b + 1) for a, b in parts])
+    assert (splits - 1) * chunk < (smax if window is None else min(smax, window))  # no split past the widest range
+    covered = np.concatenate(kernel_splits(position, smax, window, chunk, splits))
     np.testing.assert_array_equal(covered, visible_by_mask(position, smax, window))
+
+
+def kernel_splits(position, smax, window, chunk, splits) -> list[np.ndarray]:
+    """Each split's positions as the kernel's blocks compute them from the
+    position they read: ``hi = min(position, Smax - 1)``, ``lo = max(0,
+    position - window + 1)`` (0 without a window), split ``s`` from ``lo +
+    s·chunk`` to ``min(hi, lo + (s + 1)·chunk - 1)``; the non-empty ones
+    come first."""
+    hi = min(position, smax - 1)
+    lo = 0 if window is None else max(0, position - window + 1)
+    parts = [np.arange(lo + s * chunk, min(hi, lo + s * chunk + chunk - 1) + 1) for s in range(splits)]
+    sizes = [len(p) for p in parts]
+    full = sum(1 for n in sizes if n == chunk)
+    assert sizes[0] >= 1 and all(n == 0 for n in sizes[full + 1:]), sizes  # whole splits, one part, then empty ones
+    return parts
+
+
+@pytest.mark.parametrize("batch,hkv,smax,window", [
+    (104, 8, 1152, None),  # the cell's shape
+    (8, 8, 1152, None),
+    (2, 8, 700, 256),  # a window shorter than the cache
+    (2, 8, 300, 4096),  # a window longer than the cache
+    (1, 1, 3000, None),  # one (row, head): many splits
+    (2, 2, 48, 32),  # the smoke width
+])
+def test_one_split_layout_covers_every_position_exactly_once(batch, hkv, smax, window):
+    """The layout ``plan`` fixes for a shape serves every position a decode
+    reaches, past the cache included (its slot clamped): each visible
+    position in exactly one split, no masked one in any, no split read past
+    ``hi``."""
+    chunk, splits = gqa_decode.plan(batch, hkv, smax, window, sms=132)
+    last = smax + 40 if window is None else smax + window - 2  # beyond: nothing visible
+    for position in range(last + 1):
+        parts = kernel_splits(position, smax, window, chunk, splits)
+        np.testing.assert_array_equal(np.concatenate(parts), visible_by_mask(position, smax, window))
+        assert all(p.max() <= min(position, smax - 1) for p in parts if p.size)
 
 
 @pytest.mark.parametrize("position,smax,window", [(-1, 16, None), (40, 16, 8), (23, 16, 8)])
@@ -111,7 +147,15 @@ def test_geometry_splits_each_row_over_whole_lanes(hd, group, kv_bytes):
 def test_the_cells_shape_reads_each_row_with_sixteen_lanes():
     assert geometry(128, 4, 2) == {"kWarps": 4, "kVec": 8, "kE": 8, "kTpr": 16, "kRpw": 2, "kNc": 1,
                                    "kUnroll": 4, "kRows": 32}
-    assert gqa_decode.plan(104, 8, 1152, 1088, None, 132) == (0, 1088, 384, 3)
+    assert gqa_decode.plan(104, 8, 1152, None, 132) == (384, 3)
+    # at the cell's decode positions 1,088 and 1,151 a layout cut to the visible range alone
+    # (n = position + 1) has the same boundaries, so the fixed layout sums there in its order
+    want = -(-gqa_decode.BLOCKS_PER_SM * 132 // (104 * 8))
+    for position in (1088, 1151):
+        n = position + 1
+        chunk = gqa_decode.CHUNK_ALIGN * -(-n // (want * gqa_decode.CHUNK_ALIGN))
+        assert (chunk, -(-n // chunk)) == (384, 3)
+        assert [p[0] for p in kernel_splits(position, 1152, None, 384, 3)] == [0, 384, 768]
 
 
 @pytest.mark.parametrize("window,cap", [(None, None), (5, 50.0)])

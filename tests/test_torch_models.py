@@ -30,7 +30,7 @@ import repro_torch.models as PM
 import repro_torch.serve as PS
 from repro_torch.convert import cache_from_reference, params_from_reference
 from repro_torch.models import common as PMC
-from repro_torch.tree import flatten_with_path, leaves
+from repro_torch.tree import flatten_with_path, leaves, tree_map
 
 CPU = torch.device("cpu")
 ARCHS = RC.list_archs()
@@ -292,6 +292,31 @@ def test_decode_matches_prefill(arch):
         _, cache = PM.prefill(cfg, params, prefix(batch), PM.init_cache(cfg, B, S + 8, torch.float32, CPU))
         step, _ = PM.decode_step(cfg, params, cache, batch["tokens"][:, -1:], S)
     np.testing.assert_allclose(step.numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b", "jamba-v0.1-52b", "whisper-medium", "pixtral-12b"])
+def test_decode_step_reads_a_device_position_as_it_reads_an_int(arch):
+    """``decode_step`` with its position as a one-element int32 tensor (0-d,
+    as the engine holds it, or ``(1,)``) gives
+    the logits and caches that the ``int`` gives, bit for bit, inside the
+    cache, at its last slot and past it (the slot clamped): RoPE, gemma-2's
+    window (32 of 40 slots), the Mamba layers beside attention, whisper's
+    sinusoid and pixtral's patches ahead of the text read the tensor."""
+    cfg = PC.smoke(PC.get_config(arch))
+    params = PM.init_model(cfg, torch.Generator().manual_seed(4))
+    B, S, Smax = 2, 12, 40
+    batch = make_batch(cfg, B, S + 1, seed=5)
+    with torch.no_grad():
+        _, cache = PM.prefill(cfg, params, prefix(batch), PM.init_cache(cfg, B, Smax, torch.float32, CPU))
+        for pos in (S, 33, Smax - 1, Smax + 3):
+            at_int = tree_map(torch.clone, cache)
+            want, _ = PM.decode_step(cfg, params, at_int, batch["tokens"][:, -1:], pos)
+            for shape in ((), (1,)):
+                at_tensor = tree_map(torch.clone, cache)
+                got, _ = PM.decode_step(cfg, params, at_tensor, batch["tokens"][:, -1:],
+                                        torch.full(shape, pos, dtype=torch.int32))
+                assert torch.equal(got, want), (pos, shape)
+                assert all(torch.equal(a, b) for a, b in zip(leaves(at_tensor), leaves(at_int))), (pos, shape)
 
 
 def test_local_window_masks_differ_from_global():
