@@ -49,6 +49,7 @@ COUNTERS = {
     "ingest.padded_values": "values the row sort receives beyond the real ones: pad sentinels and duplicated rows",
     "ingest.host_copy_bytes": "bytes of host staging arrays ingest writes: the narrowing copy, mixed-dtype casts, contiguous copies (and pad_pow2's arrays, where a caller pads)",
     "ingest.upload_bytes": "bytes ingest copies from host arrays into the sort's input buffer",
+    "ingest.pinned_bytes": "the part of ingest.upload_bytes that goes through a device's pinned staging ring",
     "pullup.dispatches": "batched merge dispatches of the tree's pull-ups and rebuilds",
     "pullup.pair_merges": "sibling pairs those dispatches merged",
 }

@@ -101,7 +101,6 @@ port's kernels on the store's device.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import tempfile
@@ -125,7 +124,7 @@ from repro_torch.core.histogram import (
 from repro_torch.analysis.witness import OrderedRLock
 from repro_torch.device import resolve_device
 from repro_torch.core import failpoints as faults
-from repro_torch.core import spans
+from repro_torch.core import pinned, spans
 from repro_torch.core.arena import NodeArena
 from repro_torch.core.interval_tree import COLLAPSE_MODES, IntervalTree
 from repro_torch.core.retention import RetentionPolicy, StoreStats, policy_from_spec
@@ -157,17 +156,6 @@ def _staged(v: np.ndarray, dtype) -> np.ndarray:
     out = np.ascontiguousarray(v, dtype=dtype)
     spans.count("ingest.host_copy_bytes", out.nbytes)
     return out
-
-
-def _host_tensor(v: np.ndarray) -> torch.Tensor:
-    """A tensor over a contiguous host array that is only read from.  A
-    read-only array is taken through a writable alias of its bytes: torch
-    warns about read-only memory, and a copy out of it writes nothing
-    there.  The caller keeps ``v`` alive while the tensor is used."""
-    if not v.flags.writeable:
-        alias = (ctypes.c_char * v.nbytes).from_address(v.ctypes.data)
-        v = np.frombuffer(alias, dtype=v.dtype)
-    return torch.from_numpy(v)
 
 
 def _validated(values) -> np.ndarray:
@@ -464,8 +452,10 @@ class HistogramStore(PoolStateView):
         sort kernel launch on the store's device (its batch axis padded to
         a power of two as well).  The padded input is built on the device:
         a buffer filled with the sentinel, each row's real values copied
-        into its head straight from the caller's array, the duplicated
-        rows copied from the last real one.  Results reach host NumPy
+        into its head straight from the caller's array (a large row on a
+        CUDA device through the pinned staging ring of
+        :mod:`~repro_torch.core.pinned`), the duplicated rows copied from
+        the last real one.  Results reach host NumPy
         before this returns and are bit-identical to the per-partition
         ``build_exact`` path.
 
@@ -490,7 +480,7 @@ class HistogramStore(PoolStateView):
                 else:
                     groups.setdefault(next_pow2(v.shape[0]), []).append((int(pid), v))
         for pid, v in small:
-            h = build_exact(_host_tensor(_staged(v, v.dtype)).to(self.device), v.shape[0])
+            h = build_exact(pinned.host_tensor(_staged(v, v.dtype)).to(self.device), v.shape[0])
             out[pid] = _make_summary(
                 pid, v.shape[0], h.boundaries.cpu().numpy(), h.sizes.cpu().numpy()
             )
@@ -513,12 +503,12 @@ class HistogramStore(PoolStateView):
                         "ingest.padded_values",
                         sum(n_pad - v.shape[0] for _, v in rows) + (k_pad - k) * n_pad,
                     )
-                with spans.span("store.h2d"):
+                with spans.span("store.h2d"), pinned.Upload() as up:
                     for r, (_, v) in enumerate(rows):
                         if v.dtype != dtype:  # np.stack's cast, then narrowing
                             v = _narrowed(_staged(v, common))
                         v = _staged(v, dtype)
-                        x[r, : v.shape[0]].copy_(_host_tensor(v))
+                        up.copy(x[r, : v.shape[0]], v)
                         spans.count("ingest.upload_bytes", v.nbytes)
                 with spans.span("store.stack"):
                     if k < k_pad:

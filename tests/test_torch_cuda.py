@@ -200,6 +200,162 @@ def test_cuda_async_ingest_launches_from_the_worker(cuda):
         asy.close()
 
 
+@pytest.fixture
+def small_ring(cuda, monkeypatch):
+    """A fresh ring of three threads and five slots of 64 KiB, taking
+    every row of 64 KiB or more: a test's rows of a few MB reuse each slot
+    several times."""
+    from repro_torch.core import pinned
+
+    monkeypatch.setattr(pinned, "THREADS", 3)
+    monkeypatch.setattr(pinned, "CHUNK_BYTES", 1 << 16)
+    monkeypatch.setattr(pinned, "MIN_BYTES", 1 << 16)
+    monkeypatch.setattr(pinned, "_RINGS", {})
+    return pinned
+
+
+def _ring_parts(dtype, seed: int) -> dict:
+    """Rows of 2.8, 4.2 and 1.2 MB through the ring, one of 280 KB in
+    fewer chunks than the ring has slots, one of 20 KB copied directly; a
+    read-only and a strided one among them."""
+    rng = np.random.default_rng(seed)
+    lens = [700_001, 1 << 20, 300_000, 70_000, 5000]
+    if np.issubdtype(dtype, np.floating):
+        parts = {p: (rng.gumbel(size=n) * 10).astype(dtype) for p, n in enumerate(lens)}
+    else:
+        parts = {p: rng.integers(-(2**31), 2**31 - 1, size=n, dtype=np.int64).astype(dtype)
+                 for p, n in enumerate(lens)}
+    parts[1].setflags(write=False)
+    parts[5] = np.concatenate([parts[0], parts[0]])[::2]
+    return parts
+
+
+def _same_summaries(a, b, pids):
+    for pid in pids:
+        x, y = a.summaries[pid], b.summaries[pid]
+        assert x.boundaries.dtype == y.boundaries.dtype, pid
+        assert np.array_equal(x.boundaries, y.boundaries) and np.array_equal(x.sizes, y.sizes), pid
+        assert x.crc == y.crc, pid
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64, np.int64])
+def test_cuda_pinned_ring_summaries_bit_equal_to_direct_copies(cuda, small_ring, monkeypatch, dtype):
+    """Rows through the pinned ring (narrowed, read-only and strided ones
+    among them, one at a time and in one batch) give the summaries of the
+    direct copy on the card and of the CPU store, bit for bit, and count
+    their bytes in ``ingest.pinned_bytes``."""
+    from repro_torch.core import HistogramStore, spans
+
+    parts = _ring_parts(dtype, 33)
+    big = sum(v.size * 4 for v in parts.values() if v.size * 4 >= small_ring.MIN_BYTES)
+    ring = [HistogramStore(num_buckets=64, device=cuda) for _ in range(2)]
+    s0 = spans.snapshot()["ingest.pinned_bytes"]
+    ring[0].ingest_many(parts)
+    for pid, v in parts.items():
+        ring[1].ingest(pid, v)
+    assert spans.snapshot()["ingest.pinned_bytes"] - s0 == 2 * big
+    assert len(small_ring._RINGS) == 1
+    monkeypatch.setattr(small_ring, "MIN_BYTES", 1 << 62)
+    direct, cpu = HistogramStore(num_buckets=64, device=cuda), HistogramStore(num_buckets=64, device="cpu")
+    s0 = spans.snapshot()["ingest.pinned_bytes"]
+    for st in (direct, cpu):
+        st.ingest_many(parts)
+    assert spans.snapshot()["ingest.pinned_bytes"] == s0
+    for st in ring + [cpu]:
+        _same_summaries(st, direct, parts)
+
+
+@pytest.mark.parametrize("slowed", ["copy", "current"])
+def test_cuda_pinned_ring_waits_for_a_slowed_stream(cuda, small_ring, slowed):
+    """A copy stream held back by a sleep (the slots' DMAs queued behind
+    it: a slot refilled before its DMA ran, or a sort that did not wait
+    for the copies, would read other bytes; the 280 KB row's five chunks
+    take a slot each, so only the sort's wait holds its sort back), or a
+    current stream held back before the sentinel fill (a DMA that did not
+    wait for the fill would be overwritten by it): the summaries stay
+    exact."""
+    from repro_torch.core import HistogramStore
+
+    parts = _ring_parts(np.float32, 34)
+    st, cpu = HistogramStore(num_buckets=64, device=cuda), HistogramStore(num_buckets=64, device="cpu")
+    st.ingest(9, parts.pop(2))  # builds the ring
+    ring = next(iter(small_ring._RINGS.values()))
+    for pid, v in parts.items():
+        with torch.cuda.stream(ring.stream if slowed == "copy" else torch.cuda.current_stream()):
+            torch.cuda._sleep(100_000_000)  # about 50 ms at 1.98 GHz
+        st.ingest(pid, v)
+    cpu.ingest_many(parts)
+    _same_summaries(st, cpu, parts)
+
+
+def test_cuda_pinned_ring_two_threads_two_stores_at_once(cuda, small_ring):
+    """Two threads ingest into two stores at once, taking turns on the one
+    ring of the card; both stay exact."""
+    import threading
+
+    from repro_torch.core import HistogramStore
+
+    jobs = [_ring_parts(np.float32, 35), _ring_parts(np.int32, 36)]
+    stores = [HistogramStore(num_buckets=64, device=cuda) for _ in jobs]
+    errors = []
+
+    def run(st, parts):
+        try:
+            for _ in range(3):
+                for pid, v in parts.items():
+                    st.ingest(pid, v)
+        except Exception as e:  # noqa: BLE001 - re-raised by the test below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=job) for job in zip(stores, jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(small_ring._RINGS) == 1
+    for st, parts in zip(stores, jobs):
+        cpu = HistogramStore(num_buckets=64, device="cpu")
+        cpu.ingest_many(parts)
+        _same_summaries(st, cpu, parts)
+
+
+def test_cuda_pinned_ring_keeps_no_reference_to_the_callers_array(cuda, small_ring):
+    """The caller's array is overwritten right after ``ingest`` returns:
+    the stored summary and the month's answer are the original values'."""
+    from repro_torch.core import HistogramStore
+
+    parts = _ring_parts(np.float32, 37)
+    keep = {pid: v.copy() for pid, v in parts.items()}
+    st = HistogramStore(num_buckets=64, device=cuda)
+    for pid, v in parts.items():
+        w = v.copy()
+        st.ingest(pid, w)
+        w[:] = -1.0
+    torch.cuda.synchronize()
+    cpu = HistogramStore(num_buckets=64, device="cpu")
+    cpu.ingest_many(keep)
+    _same_summaries(st, cpu, parts)
+    (hg, eg), (hc, ec) = st.query(0, 5, 16), cpu.query(0, 5, 16)
+    assert np.array_equal(hg.boundaries, hc.boundaries) and np.array_equal(hg.sizes, hc.sizes) and eg == ec
+
+
+def test_cuda_pinned_ring_at_its_own_sizes(cuda, monkeypatch):
+    """The ring as the store builds it (its own chunk, slots and threads):
+    a row of three chunks and a tail, summarized as the CPU store does."""
+    from repro_torch.core import HistogramStore, pinned, spans
+
+    monkeypatch.setattr(pinned, "_RINGS", {})
+    n = (3 * pinned.CHUNK_BYTES + 4 * 7) // 4
+    v = (np.random.default_rng(38).gumbel(size=n) * 10).astype(np.float32)
+    st, cpu = HistogramStore(num_buckets=2032, device=cuda), HistogramStore(num_buckets=2032, device="cpu")
+    s0 = spans.snapshot()["ingest.pinned_bytes"]
+    st.ingest(0, v)
+    assert spans.snapshot()["ingest.pinned_bytes"] - s0 == v.nbytes
+    cpu.ingest(0, v)
+    _same_summaries(st, cpu, [0])
+
+
 def test_cuda_pre_histogram_and_empirical_sizes_match_cpu(cuda):
     from repro_torch.core import Histogram, build_exact, empirical_sizes, merge, pre_histogram
 

@@ -252,12 +252,14 @@ def _reader(name):
 
 
 # one paper day: 161,290,322 values padded to 2^28, the host copies of
-# padding on the host, the real values uploaded, and 1.0 s of padding and
+# padding on the host, the real values uploaded (one day of the two through
+# a pinned staging ring), and 1.0 s of padding and
 # stacking; 20 ms of tree upkeep over two partitions
 DAY, PAD = 161_290_322, 2**28 - 161_290_322
 COUNTERS = {
     "values": 2 * DAY, "partitions": 2, "ingest.padded_values": 2 * PAD,
     "ingest.host_copy_bytes": 2 * (4 * PAD + 2 * 4 * 2**28), "ingest.upload_bytes": 2 * 4 * DAY,
+    "ingest.pinned_bytes": 4 * DAY,
     "span_ns.store.pad": 1_200_000_000, "span_ns.store.stack": 800_000_000,
     "span_ns.store.tree_update": 8_000_000, "span_ns.store.retention": 12_000_000,
 }
@@ -271,6 +273,7 @@ COUNTERS = {
         ("pad_share.ingest", 100.0 * PAD / 2**28),
         ("tree_ms_per_partition.ingest", 10.0),
         ("upload_bytes_per_value.ingest", 4.0),
+        ("pinned_share.ingest", 50.0),
     ],
 )
 def test_a_reader_of_the_programs_spans_and_counters(name, want):
