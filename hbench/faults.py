@@ -59,17 +59,18 @@ def nudged_summaries(real):
 
 def _decode_writing_at(offset):
     """``attention.decode_attention_step`` with the new key and value
-    written ``offset`` slots past the token's position, or, with
-    ``offset`` ``None``, not written at all."""
+    written ``offset`` slots past the token's position (clamped into the
+    cache), or, with ``offset`` ``None``, not written at all.  The slot is
+    worked out on the device from ``position`` (a 0-d int32 tensor there),
+    as the program's step does, so a CUDA graph captures the step."""
     def step(cfg, p, x, position, cache, *, kind="global"):
         B = x.shape[0]
         Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-        pos = torch.full((1,), position, dtype=torch.int32, device=x.device)
-        q, k, v = attention._project_qkv(cfg, p, x, pos, cfg.use_rope)
+        q, k, v = attention._project_qkv(cfg, p, x, position, cfg.use_rope)
         if offset is not None:
-            slot = min(position + offset, cache["k"].shape[1] - 1)
-            cache["k"][:, slot:slot + 1] = k
-            cache["v"][:, slot:slot + 1] = v
+            slot = (position + offset).clamp(0, cache["k"].shape[1] - 1).long()
+            cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         out = attention.decode_attention(q.reshape(B, 1, Hkv, G, cfg.head_dim), cache["k"], cache["v"], position,
                                          window=attention._window(cfg, kind), logit_cap=cfg.attn_softcap)
         return attention._out(out.reshape(B, 1, cfg.num_heads, cfg.head_dim), p["wo"]), cache

@@ -5,8 +5,10 @@ batching tricks and no kernel of the program.
 A configuration (``configs/<config>.json``) gives the published sizes
 under Hugging Face's keys and a ``pattern`` of layer kinds, each
 ``"<mixer>+<ffn>"`` (``attn+mlp`` for Qwen3).  Each part of a kind is
-computed by ``layers/<part>.py`` under the checkout, found by name as the
-harness finds a cell's files, with three functions:
+computed by a file found by name as the harness finds a cell's files:
+``layers/<config>/<part>.py`` where the configuration (its ``name``)
+brings its own variant of the part, else ``layers/<part>.py``, the
+published part that configurations share.  Each has three functions:
 
 - ``params(c)``: ``{leaf: (shape, std)}`` of one layer's part;
 - ``apply(c, p, x, w)``: the part on the normed stream ``x`` ``(n, S,
@@ -51,6 +53,13 @@ def _load(path: str):
     return mod
 
 
+def part_file(layers_dir: str, config: str, part: str) -> str:
+    """The file of ``part`` for the configuration named ``config``: its
+    own, ``<config>/<part>.py``, where there is one, else the shared one."""
+    own = os.path.join(layers_dir, config, part + ".py")
+    return own if os.path.isfile(own) else os.path.join(layers_dir, part + ".py")
+
+
 class Decoder:
     """The configuration ``c`` with its layer parts from ``layers_dir``."""
 
@@ -62,7 +71,7 @@ class Decoder:
             raise ValueError(f"{depth} layers are no whole number of periods of {c['pattern']}")
         self.periods = depth // len(self.pattern)
         names = {part for kind in self.pattern for part in kind}
-        self.parts = {n: _load(os.path.join(layers_dir, n + ".py")) for n in sorted(names)}
+        self.parts = {n: _load(part_file(layers_dir, c["name"], n)) for n in sorted(names)}
         self.eps = float(c["rms_norm_eps"])
 
     # ---- the tree ------------------------------------------------------

@@ -6,8 +6,11 @@ the checks the committed cells pass (``test_hbench_runs.py``), at the
 tiny sizes its own tiny files give, on the port's ``device="cpu"`` path.
 Among them is a served hybrid model (``jamba-v0.1-52b`` at the port's
 smoke widths: Mamba, attention and MoE layers in one period), whose
-reference brings its two new layer parts as files of their own, and
-whose configuration brings a planted fault (``planted/hybrid.py``) that
+reference brings its two layer parts in its own folder
+(``reference/layers/hybrid/``), which the shared names leave free for the
+published parts; whose adapter of its own (``systems/hybrid_chunked.py``)
+sets a port option that ``systems/engine.py`` does not; and whose
+configuration brings a planted fault (``planted/hybrid.py``) that
 ``test_hbench_faults.py``'s check catches."""
 import filecmp
 import json
@@ -15,8 +18,10 @@ import os
 import shutil
 
 import pytest
+import torch
 
 from hbench import faults, harness
+from hbench.reference.model import Decoder
 from hbench.test_hbench_faults import planted_run
 from hbench.test_hbench_runs import check_control, check_program
 from hbench.test_hbench_runs import run as run_tiny
@@ -32,8 +37,9 @@ OPEN = {"fill": {"days": 31, "mode": "async"}, "loop": "open", "rate_per_s": 300
 EXACT = {"boundaries_off_leaves": 0, "bucket_err_over_eps": 1.0}
 # jamba-v0.1-52b's layer period at the port's smoke widths (repro_torch.configs.smoke), in float32
 # as smoke configs are (in bfloat16 a router's near-tie flips an expert and moves a logit far past
-# rounding), with RoPE at the port's default theta, which the plain attention then applies too
-HYBRID = {"name": "hybrid", "system": "engine", "arch": "jamba-v0.1-52b",
+# rounding), with RoPE at the port's default theta, which the plain attention then applies too;
+# served through an adapter of its own that takes the scan's chunk from the configuration
+HYBRID = {"name": "hybrid", "system": "hybrid_chunked", "arch": "jamba-v0.1-52b", "mamba_chunk": 5,
           "pattern": ["mamba+mlp", "mamba+moe", "mamba+mlp", "mamba+moe", "attn+mlp", "mamba+moe", "mamba+mlp",
                       "mamba+moe"],
           "hidden_size": 128, "intermediate_size": 256, "num_attention_heads": 4, "num_key_value_heads": 2,
@@ -146,7 +152,32 @@ SPAN_METRIC = '''def read(run):
     ns = c.get("span_ns.engine.generate")
     return ns / c["turns"] / 1e6 if ns and c.get("turns") else None
 '''
-CODE = {"reference/layers/mamba.py": MAMBA, "reference/layers/moe.py": MOE, "planted/hybrid.py": PLANTED,
+# an adapter of the kind a configuration brings where its architecture needs a port option that
+# systems/engine.py does not set (its _FIELDS map onto a ModelConfig held equal to the JAX package's)
+ADAPTER = '''"""The hybrid's adapter: ``systems/engine.py``'s, with the selective
+scan's prefill chunk (``mamba_chunk``), a port option that adapter does
+not set, taken from the configuration."""
+import dataclasses
+
+from hbench.systems import engine
+from repro_torch.serve import Engine, ServeConfig
+
+KIND = "model"
+
+
+def port_config(cfg):
+    return dataclasses.replace(engine.port_config(cfg), mamba_chunk=int(cfg["mamba_chunk"]))
+
+
+class System(engine.System):
+    def __init__(self, cfg, traffic, params, device):
+        prompt, new = int(traffic["prompt_tokens"]), int(traffic["new_tokens"])
+        scfg = ServeConfig(max_seq=prompt + new, max_new_tokens=new, temperature=0.0,
+                           eos_id=int(cfg["vocab_size"]), cache_dtype=cfg["torch_dtype"])
+        self.engine = Engine(port_config(cfg), params, scfg, device=device)
+'''
+CODE = {"reference/layers/hybrid/mamba.py": MAMBA, "reference/layers/hybrid/moe.py": MOE,
+        "systems/hybrid_chunked.py": ADAPTER, "planted/hybrid.py": PLANTED,
         "metrics/host_row_copies_per_request.query.py": METRIC, "metrics/generate_ms_per_turn.serve.py": SPAN_METRIC}
 SEED = 2**31 + 77
 
@@ -255,3 +286,37 @@ def test_windows_follow_the_newest_partition_while_ingest_runs_beside_them(root,
     assert max(hi for _, _, hi, *_ in judged) == newest  # the month asked after the window
     assert all(newest - 30 <= lo for _, lo, *_ in judged[-5:])
     assert min(lo for _, lo, *_ in judged) < newest - 30 + 1  # earlier answers were of earlier months
+
+
+def test_a_served_configurations_own_adapter_sets_a_port_option_engine_py_does_not(root, monkeypatch):
+    from hbench.systems import engine
+    from repro_torch.models import mamba
+
+    chunks, real = [], mamba._chunk
+    monkeypatch.setattr(mamba, "_chunk", lambda cfg, p, s, d, h, x1_c: (chunks.append(x1_c.shape[1]), real(
+        cfg, p, s, d, h, x1_c))[1])
+    out = run(root, "hybrid.chat")
+    check_program(out, "hybrid.chat", harness.load_bench(root))
+    assert engine.port_config(HYBRID).mamba_chunk != HYBRID["mamba_chunk"]  # the shared adapter leaves it
+    assert set(chunks) == {5, 2}  # 12-token prompts: two chunks of 5 and a tail of 2 in every Mamba layer
+
+
+def test_a_configurations_own_layer_parts_come_before_the_shared_ones(tmp_path):
+    layers = tmp_path / "layers"
+    (layers / "hybrid").mkdir(parents=True)
+    for part in ("attn", "mlp"):
+        shutil.copy(os.path.join(harness.HERE, "reference", "layers", part + ".py"), layers / (part + ".py"))
+    for part, body in (("mamba", MAMBA), ("moe", MOE)):
+        (layers / "hybrid" / (part + ".py")).write_text(body)
+        (layers / (part + ".py")).write_text(body + "\n\ndef apply(c, p, x, w):\n    raise LookupError('shared')\n")
+    tokens = torch.arange(12).reshape(2, 6) * 37 % HYBRID["vocab_size"]
+    own = Decoder(HYBRID, str(layers))
+    assert {n: os.path.relpath(m.__file__, layers) for n, m in own.parts.items()} == {
+        "attn": "attn.py", "mlp": "mlp.py", "mamba": os.path.join("hybrid", "mamba.py"),
+        "moe": os.path.join("hybrid", "moe.py")}
+    assert torch.isfinite(own.logits(own.make_params(3, "cpu"), tokens, 0)).all()
+    other = Decoder({**HYBRID, "name": "other"}, str(layers))
+    assert {n: os.path.relpath(m.__file__, layers) for n, m in other.parts.items()} == {
+        n: n + ".py" for n in ("attn", "mlp", "mamba", "moe")}
+    with pytest.raises(LookupError, match="shared"):
+        other.logits(other.make_params(3, "cpu"), tokens, 0)

@@ -4,13 +4,18 @@ brings in ``planted/<config>.py``), planted in the program (the port's
 ``device="cpu"`` path)."""
 import numpy as np
 import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from hbench import faults, harness, tiny
 from hbench.data import Pool
 from hbench.reference.exact import Reference
 
+from repro_torch.configs import get_config, smoke
 from repro_torch.core.stream import HistogramStore
 from repro_torch.core.tenant import TenantRegistry
+from repro_torch.models import attention
+from repro_torch.models.common import Init
 
 BENCH = harness.with_deferred(harness.load_bench())
 FAULTS, PLANTED = faults.planted()
@@ -55,6 +60,44 @@ CASES = [
 def test_a_planted_fault_is_not_correct(monkeypatch, name, fault):
     out = planted_run(monkeypatch, name, fault)
     assert not out["correct"], out
+
+
+SMAX = 16
+
+
+class NoHostRead(TorchDispatchMode):
+    """Refuses every read of a tensor's value on the host (``int``,
+    ``bool``, ``.item()``), which a CUDA graph's capture refuses too."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise RuntimeError("a value read on the host")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("offset", [1, None])
+@pytest.mark.parametrize("position", [5, SMAX - 2, SMAX - 1, SMAX + 3])
+def test_a_kv_fault_writes_its_slot_from_a_position_on_the_device(position, offset):
+    """The KV faults take the position as the program's step does, a 0-d
+    int32 tensor, and read no value of it on the host: one slot off writes
+    the program's key and value at ``position + 1``, clamped to the
+    cache's last slot; unwritten writes nothing."""
+    cfg = smoke(get_config("qwen3-8b"))
+    g = torch.Generator().manual_seed(5)
+    p = attention.init_attention(cfg, Init(g, torch.device("cpu")))
+    x = torch.randn((3, 1, cfg.d_model), generator=g)
+    pos = torch.tensor(position, dtype=torch.int32)
+    sound = attention.init_kv_cache(cfg, 3, SMAX, dtype=torch.float32)
+    cache = attention.init_kv_cache(cfg, 3, SMAX, dtype=torch.float32)
+    with NoHostRead():
+        y, _ = attention.decode_attention_step(cfg, p, x, pos, sound)
+        out, back = faults._decode_writing_at(offset)(cfg, p, x, pos, cache)
+    assert back is cache and out.shape == y.shape and pos.shape == () and int(pos) == position
+    written = [s for s in range(SMAX) if cache["k"][:, s].any() or cache["v"][:, s].any()]
+    assert written == ([] if offset is None else [min(position + 1, SMAX - 1)])
+    for s in written:
+        here = min(position, SMAX - 1)  # where the program's step wrote the same key and value
+        assert torch.equal(cache["k"][:, s], sound["k"][:, here]) and torch.equal(cache["v"][:, s], sound["v"][:, here])
 
 
 @pytest.mark.parametrize("registry", [False, True])

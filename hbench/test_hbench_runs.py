@@ -3,12 +3,14 @@ port's ``device="cpu"`` path) is correct, the control is not, and the
 result line keeps its schema."""
 import json
 import os
+import shutil
 import subprocess
 import sys
 
 import pytest
 
 from hbench import harness, tiny
+from hbench.reference.model import part_file
 
 BENCH = harness.with_deferred(harness.load_bench())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -77,19 +79,31 @@ def test_nothing_the_benchmark_runs_imports_jax_or_the_jax_package():
     assert p.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_the_reference_imports_nothing_of_the_program():
+def test_the_reference_imports_nothing_of_the_program(tmp_path):
     configs = os.path.join(harness.HERE, "configs")
     served = [os.path.join(configs, n) for n in sorted(os.listdir(configs))
               if harness.is_model(harness._json(os.path.join(configs, n)))]
     assert served
+    # the layer parts as committed, and a copy in which each served configuration has its own folder
+    layers = os.path.join(harness.HERE, "reference", "layers")
+    own = str(tmp_path / "layers")
+    shutil.copytree(layers, own, ignore=shutil.ignore_patterns("__pycache__"))
+    for path in served:
+        c = harness._json(path)
+        os.makedirs(os.path.join(own, c["name"]), exist_ok=True)
+        for part in {p for kind in c["pattern"] for p in kind.split("+")}:
+            shutil.copy(part_file(layers, c["name"], part), os.path.join(own, c["name"], part + ".py"))
     code = (
-        "import sys; sys.path[:0] = [{root!r}]\n"
+        "import sys, os; sys.path[:0] = [{root!r}]\n"
         "import hbench.reference.exact, hbench.reference.control, hbench.cost, hbench.traffic, hbench.data\n"
         "import json, hbench.model_cost, hbench.reference.model as m\n"
         "for path in {served!r}:\n"
-        "    m.Decoder(json.load(open(path)), {root!r} + '/hbench/reference/layers')\n"
+        "    c = json.load(open(path))\n"
+        "    m.Decoder(c, {layers!r})\n"
+        "    d = m.Decoder(c, {own!r})\n"
+        "    assert all(os.path.dirname(p.__file__) == os.path.join({own!r}, c['name']) for p in d.parts.values())\n"
         "print(sorted({{m.split('.')[0] for m in sys.modules}} & {{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}}))\n"
-    ).format(root=harness.ROOT, served=served)
+    ).format(root=harness.ROOT, served=served, layers=layers, own=own)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]
