@@ -1,4 +1,5 @@
-"""Named spans and counters of the store's ingest path and its tree upkeep.
+"""Named spans and counters of the store's ingest path and its tree upkeep,
+and of the served model's Mamba and expert layers.
 
 Every span and counter the port keeps is declared here, in one table,
 as ``kernels/_lib.KERNELS`` declares the kernels: :func:`snapshot` always
@@ -42,6 +43,10 @@ SPANS = {
     "store.d2h": "boundaries and sizes back to the host, the sort's wait included",
     "store.tree_update": "leaf writes and pull-up merges",
     "store.retention": "the retention sweep: evictions and collapse",
+    # the model (models/), one span a layer's call
+    "model.mamba": "a Mamba mixer's prefill call: projections, convolution, scan, output",
+    "mamba.scan": "a Mamba mixer's chunked scan from its post-conv x1 to y: the Δ, B and C products and norms, the scan",
+    "model.moe": "an expert layer's call: routing, dispatch, the expert products, the combine",
 }
 
 # counter name -> what it counts
@@ -52,6 +57,8 @@ COUNTERS = {
     "ingest.pinned_bytes": "the part of ingest.upload_bytes that goes through a device's pinned staging ring",
     "pullup.dispatches": "batched merge dispatches of the tree's pull-ups and rebuilds",
     "pullup.pair_merges": "sibling pairs those dispatches merged",
+    "moe.routed_slots": "token-slots an expert layer routed: real tokens times the experts a token",
+    "moe.expert_rows": "rows the expert products computed, padding and empty capacity places included",
 }
 
 # span name -> [calls, ns, self ns]; counter name -> [total]

@@ -13,6 +13,11 @@ chunk's ``(B, chunk, d_inner, d_state)`` tensors exist at a time; under a
 ``torch.utils.checkpoint`` while autograd records, as the reference
 wraps it in ``jax.checkpoint``.
 
+Under the port option ``mamba_dbc_norm`` (``configs.options``, Jamba's
+published mixer) Δ's low-rank input, B and C each pass an RMSNorm
+(``dt_norm``, ``b_norm``, ``c_norm``, weights stored less one) between the
+``w_dbc`` product and ``w_dt`` and the scan, in prefill and decode alike.
+
 Dtypes follow the reference's promotion: ``A_log``, ``D`` and
 ``dt_bias`` are used as they arrive (bfloat16 under the train step's
 cast rule, which casts their stacked leaves), ``-exp(A_log)`` is computed
@@ -27,11 +32,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import Init, cast
+from repro_torch.configs.options import option
+from repro_torch.core import spans
+from repro_torch.models.common import Init, cast, rms_norm
 
 __all__ = [
     "apply_mamba", "decode_mamba_step", "init_mamba", "init_mamba_cache", "mamba_cache_specs", "mamba_specs",
+    "prefill_mamba",
 ]
+
+_NORMS = ("dt_norm", "b_norm", "c_norm")  # the mamba_dbc_norm leaves: Δ's input, B, C
 
 
 def init_mamba(cfg, rng: Init) -> dict:
@@ -40,7 +50,7 @@ def init_mamba(cfg, rng: Init) -> dict:
     n = cfg.mamba_d_state
     K = cfg.mamba_d_conv
     dt_rank = max(d // 16, 1)
-    return {
+    p = {
         "wx": rng.dense((d, d_in)),
         "wz": rng.dense((d, d_in)),
         "conv_w": rng.dense((d_in, K), fan_in=K),
@@ -56,11 +66,14 @@ def init_mamba(cfg, rng: Init) -> dict:
         "D": rng.ones((d_in,)),
         "w_out": rng.dense((d_in, d), fan_in=d_in),
     }
+    if option(cfg, "mamba_dbc_norm"):
+        p.update(zip(_NORMS, (rng.zeros((dt_rank,)), rng.zeros((n,)), rng.zeros((n,)))))
+    return p
 
 
-def mamba_specs() -> dict:
+def mamba_specs(cfg) -> dict:
     """The logical sharding of :func:`init_mamba`'s tree."""
-    return {
+    specs = {
         "wx": ("embed", "mamba_inner"),
         "wz": ("embed", "mamba_inner"),
         "conv_w": ("mamba_inner", None),
@@ -72,6 +85,9 @@ def mamba_specs() -> dict:
         "D": ("mamba_inner",),
         "w_out": ("mamba_inner", "embed"),
     }
+    if option(cfg, "mamba_dbc_norm"):
+        specs.update((k, (None,)) for k in _NORMS)
+    return specs
 
 
 def _split_dbc(cfg, dbc):
@@ -96,6 +112,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _ssm_inputs(cfg, p, x1):
     """Δ, B, C and A from the post-conv activations x1 ``(..., d_in)``."""
     dt_x, Bc, Cc = _split_dbc(cfg, x1 @ cast(p["w_dbc"], x1.dtype))
+    if option(cfg, "mamba_dbc_norm"):
+        dt_x, Bc, Cc = (rms_norm(t, p[k], cfg.norm_eps) for t, k in zip((dt_x, Bc, Cc), _NORMS))
     dt = _softplus((dt_x @ cast(p["w_dt"], x1.dtype)).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (d_in, n)
     return dt, Bc.float(), Cc.float(), A
@@ -144,18 +162,17 @@ def _chunk(cfg, p, scan_dt, dt_, h, x1_c):
     return h_all[:, -1], y.to(dt_)
 
 
-def apply_mamba(cfg, p, x: torch.Tensor, h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: ``(B, S, d)`` → ``(y, final state (B, d_in, n) float32)``; whole
-    chunks of ``cfg.mamba_chunk``, then a tail that is not a whole chunk."""
+def _mamba(cfg, p, x: torch.Tensor, h0: torch.Tensor | None):
+    """``(y, final state, the pre-conv activations (B, S, d_in))``."""
     B, S, d = x.shape
     d_in = cfg.mamba_expand * d
     dt_ = x.dtype
     c = min(cfg.mamba_chunk, S)
     n_full = S // c
 
-    x1 = x @ cast(p["wx"], dt_)
+    x0 = x @ cast(p["wx"], dt_)
     z = x @ cast(p["wz"], dt_)
-    x1 = F.silu(_causal_depthwise_conv(x1, cast(p["conv_w"], dt_), cast(p["conv_b"], dt_)))
+    x1 = F.silu(_causal_depthwise_conv(x0, cast(p["conv_w"], dt_), cast(p["conv_b"], dt_)))
     h = torch.zeros((B, d_in, cfg.mamba_d_state), dtype=torch.float32, device=x.device) if h0 is None else h0
     scan_dt = torch.bfloat16 if cfg.mamba_scan_dtype == "bfloat16" else torch.float32
 
@@ -165,14 +182,30 @@ def apply_mamba(cfg, p, x: torch.Tensor, h0: torch.Tensor | None = None) -> tupl
         return _chunk(cfg, p, scan_dt, dt_, h, x1_c)
 
     ys = []
-    for i in range(n_full):
-        h, y = chunk(h, x1[:, i * c:(i + 1) * c])
-        ys.append(y)
-    if S > n_full * c:  # the tail (e.g. a prefill of S + 1 tokens)
-        h, y = chunk(h, x1[:, n_full * c:])
-        ys.append(y)
-    y = torch.cat(ys, dim=1) * F.silu(z)
-    return y @ cast(p["w_out"], dt_), h
+    with spans.span("mamba.scan"):
+        for i in range(n_full):
+            h, y = chunk(h, x1[:, i * c:(i + 1) * c])
+            ys.append(y)
+        if S > n_full * c:  # the tail (e.g. a prefill of S + 1 tokens)
+            h, y = chunk(h, x1[:, n_full * c:])
+            ys.append(y)
+        y = torch.cat(ys, dim=1)
+    y = y * F.silu(z)
+    return y @ cast(p["w_out"], dt_), h, x0
+
+
+def apply_mamba(cfg, p, x: torch.Tensor, h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: ``(B, S, d)`` → ``(y, final state (B, d_in, n) float32)``; whole
+    chunks of ``cfg.mamba_chunk``, then a tail that is not a whole chunk."""
+    y, h, _ = _mamba(cfg, p, x, h0)
+    return y, h
+
+
+def prefill_mamba(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """:func:`apply_mamba` from a zero state → ``(y, {"h": the final state,
+    "conv": the last K − 1 pre-conv rows})``, the decode cache's contents."""
+    y, h, x0 = _mamba(cfg, p, x, None)
+    return y, {"h": h, "conv": x0[:, -(cfg.mamba_d_conv - 1):]}
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict:

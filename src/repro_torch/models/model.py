@@ -56,6 +56,8 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.options import option
+from repro_torch.core import spans
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -64,7 +66,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (
     Init,
-    cast,
     chunked_softmax_xent,
     layer_norm,
     rms_norm,
@@ -142,7 +143,7 @@ def layer_specs(cfg: ModelConfig, kind: str) -> dict:
                 "ln2": _norm_specs(cfg), "cm": rwkv_mod.rwkv_channel_mix_specs()}
     parts = _parse(kind)
     specs = {"ln1": _norm_specs(cfg),
-             "mixer": mamba_mod.mamba_specs() if parts[0] == "mamba" else attn_mod.attention_specs(cfg)}
+             "mixer": mamba_mod.mamba_specs(cfg) if parts[0] == "mamba" else attn_mod.attention_specs(cfg)}
     if "cross" in parts:
         specs["ln_x"] = _norm_specs(cfg)
         specs["cross"] = attn_mod.attention_specs(cfg)
@@ -352,13 +353,20 @@ def _positions(S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)
 
 
+def _sinusoidal(cfg) -> bool:
+    """Sinusoidal positions join the stream: no RoPE, and the port option
+    ``positions`` is not ``"none"``."""
+    return not cfg.use_rope and option(cfg, "positions") != "none"
+
+
 def _stream(cfg, params, batch: dict):
     """The decoder's input stream: the embedded tokens, after the patch
-    embeddings of a vision batch, plus sinusoidal positions without RoPE."""
+    embeddings of a vision batch, plus sinusoidal positions where
+    :func:`_sinusoidal`."""
     x = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         x = torch.cat([as_tensor(batch["patch_embeds"], x.device).to(x.dtype), x], dim=1)
-    if cfg.use_rope:
+    if not _sinusoidal(cfg):
         return x
     return x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
 
@@ -528,11 +536,10 @@ def _layer_prefill(cfg, kind, p, cache, x, positions, enc_states):
     parts = _parse(kind)
     h = _apply_norm(cfg, p["ln1"], x)
     if parts[0] == "mamba":
-        ssm = cache["ssm"]
-        conv_tail = (h @ cast(p["mixer"]["wx"], h.dtype))[:, -(cfg.mamba_d_conv - 1):]  # pre-conv rows
-        h, h_final = mamba_mod.apply_mamba(cfg, p["mixer"], h)
-        ssm["h"].copy_(h_final)
-        ssm["conv"].copy_(conv_tail)
+        with spans.span("model.mamba"):
+            h, state = mamba_mod.prefill_mamba(cfg, p["mixer"], h)
+        for key, t in state.items():
+            cache["ssm"][key].copy_(t)
     else:
         h, _ = attn_mod.prefill_attention(cfg, p["mixer"], h, positions, cache["kv"], kind=_mixer(kind))
     x = x + h
@@ -585,7 +592,7 @@ def decode_step(cfg, params, cache: tuple, token, pos):
     x = _embed_tokens(cfg, params, token)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), int(pos), dtype=torch.int32, device=x.device)
-    if not cfg.use_rope:
+    if _sinusoidal(cfg):
         i = torch.arange(cfg.d_model // 2, dtype=torch.float32, device=x.device)
         # pos times the reciprocal: the bits a host pos gave, since torch divides a Python number by a
         # tensor as the tensor's reciprocal times the number

@@ -22,12 +22,31 @@ train step needs to form the load-balance loss from the global batch's
 means: ``prob_sum`` (the router probabilities summed over every token
 slot, differentiable), ``route_sum`` (the routed one-hots summed) and
 ``slots`` (the token slots, pads included, that both means divide by).
+
+Two port options (``configs.options``) serve a published model that
+departs from this: ``moe_renormalize`` off uses the top-k gates as the
+softmax gives them, and ``moe_dispatch="dropless"`` replaces the capacity
+queues by a dispatch that drops nothing and holds no token twice.  Its
+``T·k`` token-slots are sorted by expert on the device (stably, so each
+expert's rows keep slot order), gathered, and run through the experts as
+grouped products over the contiguous per-expert slices
+(``torch._grouped_mm``, the slices' ends kept on the device), then put
+back in slot order and summed under their gates.  Its shapes follow
+``T·k`` alone and nothing reads a device value on the host, so a CUDA
+graph captures it.
+
+Every call counts ``moe.routed_slots`` (real tokens × k) and
+``moe.expert_rows`` (the rows the expert products compute, the capacity
+queues' empty places included) in ``core.spans``, under the span
+``model.moe``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.options import option
+from repro_torch.core import spans
 from repro_torch.models.common import Init, cast
 
 __all__ = ["apply_moe", "init_moe", "moe_specs"]
@@ -62,10 +81,69 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.float32)
 
 
+def _top_k(cfg, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each token's ``k`` experts, ties to the lower index, and their
+    gates: renormalized to sum to one unless ``moe_renormalize`` is off."""
+    idx = torch.argsort(-probs, dim=-1, stable=True)[..., :cfg.num_experts_per_token]
+    gate = torch.gather(probs, -1, idx)
+    if option(cfg, "moe_renormalize"):
+        gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True), min=1e-9)
+    return idx, gate
+
+
 def apply_moe(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """x: ``(B, S, d)`` → ``(y, aux)``: the load-balance and router-z
     losses, the drop fraction, the routing and the sums of the module
     docstring."""
+    with spans.span("model.moe"):
+        if option(cfg, "moe_dispatch") == "dropless":
+            return _dropless(cfg, p, x)
+        return _capacity(cfg, p, x)
+
+
+def _dropless(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """The dropless dispatch of the module docstring."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_token
+    T, dt = B * S, x.dtype
+    xt = x.reshape(T, d)
+    logits = xt.float() @ p["w_router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    idx, gate = _top_k(cfg, probs)  # (T, k)
+    flat = idx.reshape(T * k)  # slot t·k + i: token t's i-th expert
+    order = torch.argsort(flat, stable=True)  # the slots, expert by expert
+    ends = torch.searchsorted(flat[order], torch.arange(E, device=x.device), right=True).to(torch.int32)
+    rows = xt.index_select(0, order // k)
+    h = torch._grouped_mm(rows, cast(p["w_gate"], dt), offs=ends)
+    u = torch._grouped_mm(rows, cast(p["w_up"], dt), offs=ends)
+    del rows
+    if torch.is_grad_enabled():
+        h = F.silu(h) * u
+    else:  # in place: a prefill's h and u are gigabytes each
+        h = F.silu(h, inplace=True).mul_(u)
+    del u
+    y = torch._grouped_mm(h, cast(p["w_down"], dt), offs=ends)
+    del h
+    y = torch.empty_like(y).index_copy_(0, order, y)  # back in slot order
+    out = torch.bmm(gate.to(dt)[:, None, :], y.view(T, k, d)).view(B, S, d)
+    spans.count("moe.routed_slots", T * k)
+    spans.count("moe.expert_rows", T * k)
+
+    routed = _one_hot(idx, E).sum(1)  # (T, E)
+    aux = {
+        "moe_load_balance": E * torch.sum(probs.mean(0) * routed.mean(0)),
+        "moe_router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "moe_drop_fraction": torch.zeros((), device=x.device),
+        "prob_sum": probs.sum(0),
+        "route_sum": routed.sum(0),
+        "slots": T,
+        "routing": idx.reshape(B, S, k),
+    }
+    return out, aux
+
+
+def _capacity(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """GShard's grouped capacity dispatch (the module docstring)."""
     B0, S0, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_token
     # decode (S == 1): the batch becomes one sequence of groups, else
@@ -87,9 +165,7 @@ def apply_moe(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     xg = x.reshape(B, nG, g, d)
     logits = torch.einsum("bngd,de->bnge", xg.float(), p["w_router"].float())
     probs = torch.softmax(logits, dim=-1)
-    idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]  # (B, nG, g, k), ties: lower index first
-    gate = torch.gather(probs, -1, idx)
-    gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True), min=1e-9)
+    idx, gate = _top_k(cfg, probs)  # (B, nG, g, k)
 
     onehot = _one_hot(idx, E) * valid[..., None, None].to(torch.float32)  # (B, nG, g, k, E)
     # each (token, slot)'s place in its expert's queue: slot 0 first, then
@@ -123,5 +199,7 @@ def apply_moe(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         "slots": B * nG * g,
         "routing": torch.where(kept.sum(-1) > 0, idx, -1).reshape(B, S, k)[:, :S_real].reshape(B0, S0, k),
     }
+    spans.count("moe.routed_slots", B * S_real * k)
+    spans.count("moe.expert_rows", B * nG * E * cap)
     y = y.reshape(B, S, d)[:, :S_real]
     return y.reshape(B0, S0, d), aux

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.histogram import Histogram, build_exact, merge_list, quantile
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels import _lib
@@ -50,7 +51,8 @@ __all__ = ["Engine", "ServeConfig"]
 
 # the block leaves the reference casts to the compute dtype at each use
 # (the experts', the cross-attention's and the RWKV projections' too); the
-# router, A_log, D, dt_bias and RWKV's wA, wB, w0, u, mix_* it uses in float32
+# router, A_log, D, dt_bias, Mamba's Δ/B/C norms and RWKV's wA, wB, w0, u,
+# mix_* it uses in float32
 _CAST = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "b_up", "b_down",
          "wx", "wz", "conv_w", "conv_b", "w_dbc", "w_dt", "w_out", "wr", "wg"}
 
@@ -62,6 +64,12 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy
     eos_id: int = 1
     cache_dtype: str = "float32"
+
+
+def _counters() -> dict[str, int]:
+    """The program counters (``core.spans``) as they stand."""
+    snap = spans.snapshot()
+    return {name: snap[name] for name in spans.COUNTERS}
 
 
 def _compute_copy(node, dtype: torch.dtype, key: str = ""):
@@ -94,6 +102,7 @@ class Engine:
         self._shape = self._cache = self._tok = self._pos = None
         self._graph = self._logits = None
         self._launches: dict[str, int] = {}  # kernel wrapper calls a replay stands for
+        self._counted: dict[str, int] = {}  # program counters (core.spans) a replay stands for
         self._warm = False  # a step of this shape has run eagerly
         local = any(_mixer(kind) == "local" for kind in cfg.pattern)
         self._window = cfg.sliding_window if local else None  # for the host check of a decode position
@@ -182,13 +191,16 @@ class Engine:
         self._graph.replay()
         for name, n in self._launches.items():
             _lib.count(name, n)
+        for name, n in self._counted.items():
+            spans.count(name, n)
         return self._logits
 
     def _capture(self) -> None:
         """Capture one :meth:`_step` into a CUDA graph whose pool holds its
-        intermediates and its logits; the kernel wrapper calls the capture
-        counted are taken back (it ran nothing) and added at each replay."""
-        before = dict(_lib.LAUNCHES)
+        intermediates and its logits; the kernel wrapper calls and program
+        counters the capture counted are taken back (it ran nothing) and
+        added at each replay."""
+        before, counted = dict(_lib.LAUNCHES), _counters()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -199,6 +211,9 @@ class Engine:
         self._launches = {name: n - before[name] for name, n in _lib.LAUNCHES.items() if n != before[name]}
         for name, n in self._launches.items():
             _lib.count(name, -n)
+        self._counted = {name: n - counted[name] for name, n in _counters().items() if n != counted[name]}
+        for name, n in self._counted.items():
+            spans.count(name, -n)
         self._graph = graph
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:

@@ -962,8 +962,9 @@ def eager_turn(eng, prompts) -> list[np.ndarray]:
     if cfg.is_encoder_decoder:
         batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model), device=eng.device)
     out = [list(p) for p in prompts]
+    dtype = torch.float32 if scfg.cache_dtype == "float32" else torch.bfloat16
     with torch.no_grad():
-        logits, cache = prefill(cfg, eng._run, batch, init_cache(cfg, B, scfg.max_seq, torch.float32, eng.device))
+        logits, cache = prefill(cfg, eng._run, batch, init_cache(cfg, B, scfg.max_seq, dtype, eng.device))
         for step in range(scfg.max_new_tokens):
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             for o, t in zip(out, tok.tolist()):
@@ -1026,6 +1027,65 @@ def test_cuda_replayed_steps_count_one_decode_attention_a_layer(cuda):
     assert attn >= 1 and kernels.reset_launches()["decode_attention"] == 5 * attn
     eng.generate(prompts)  # replays only
     assert kernels.reset_launches()["decode_attention"] == 5 * attn
+
+
+def jamba_engine(cuda, **scfg):
+    """An ``Engine`` on the card with AI21-Jamba2-Mini's port options (no
+    positions, the Δ/B/C norms, unrenormalised gates, the dropless
+    dispatch) at jamba-v0.1-52b's smoke widths, in bfloat16 with a
+    bfloat16 cache; ``eos_id`` -1."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.options import with_options
+    from repro_torch.models import init_model
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    cfg = with_options(smoke(get_config("jamba-v0.1-52b")), compute_dtype="bfloat16", mamba_chunk=5,
+                       use_rope=False, positions="none", mamba_dbc_norm=True, moe_renormalize=False,
+                       moe_dispatch="dropless")
+    params = tree_map(lambda t: t.to(cuda), init_model(cfg, torch.Generator().manual_seed(0)))
+    return Engine(cfg, params, ServeConfig(eos_id=-1, cache_dtype="bfloat16", **scfg), device=cuda)
+
+
+def test_cuda_jamba_options_capture_and_replay_the_eager_steps(cuda):
+    """The Jamba options' decode step (Mamba state, the dropless experts'
+    device-side sort and grouped products, the attention layer) captures;
+    its replays serve the eager path's tokens, and each replay adds the
+    expert counters its capture took back."""
+    from repro_torch.core import spans
+
+    eng = jamba_engine(cuda, max_seq=48, max_new_tokens=6)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(2, eng.cfg.vocab_size, size=12).astype(np.int32) for _ in range(3)]
+    s0 = spans.snapshot()
+    got = eng.generate(prompts)
+    d = {k: v - s0[k] for k, v in spans.snapshot().items()}
+    assert eng._graph is not None and eng._counted == {"moe.routed_slots": 4 * 3 * 2, "moe.expert_rows": 4 * 3 * 2}
+    # the prefill's 12 tokens a row, then 6 decode steps: eager, captured and replayed, 4 replays
+    assert d["moe.routed_slots"] == d["moe.expert_rows"] == 4 * 3 * 2 * (12 + 6)
+    for g, w in zip(got, eager_turn(eng, prompts)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_cuda_jamba_prefill_and_decode_step_make_no_host_sync(cuda):
+    """Neither the prefill nor a decode step at a device position waits on
+    the card or copies a value to the host (the served turn's only copies
+    are its sampled ids)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    eng = jamba_engine(cuda)
+    toks = torch.randint(0, eng.cfg.vocab_size, (3, 17), generator=torch.Generator().manual_seed(9)).to(cuda)
+    cache = init_cache(eng.cfg, 3, 32, torch.bfloat16, cuda)
+    pos = torch.full((), 16, dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        prefill(eng.cfg, eng._run, {"tokens": toks[:, :16]}, cache)  # loads every library first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prefill(eng.cfg, eng._run, {"tokens": toks[:, :16]}, cache)
+            decode_step(eng.cfg, eng._run, cache, toks[:, 16:], pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
 
 def test_cuda_decode_attention_rejects_what_it_does_not_take(cuda):
